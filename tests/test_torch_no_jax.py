@@ -1,0 +1,46 @@
+"""dwarf_bench_tpu_torch and chip_smoke.py import no JAX, neither directly
+nor through the JAX package."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+SOURCES = sorted((REPO / "dwarf_bench_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"
+]
+FORBIDDEN = ("jax", "jaxlib", "dwarf_bench_tpu")
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for name in _imported(tree):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import dwarf_bench_tpu_torch, dwarf_bench_tpu_torch.cli\n"
+        "import dwarf_bench_tpu_torch.ops.csr_join, chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'dwarf_bench_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
