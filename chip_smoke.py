@@ -13,9 +13,12 @@ with nvcc, then:
      agreement (every output is an integer); prints both times;
   3. drives the dwarfs through the CLI entry point with ``--device=gpu``
      (Radix 2^22, GroupBy 2^22 with G=64, GroupBy 2^20 with G=2^16,
-     JoinOmnisci 2^20, three iterations each) and requires every result to
-     be valid, every kernel of a dwarf's path to have launched in its run,
-     and the CSV header to be the one the JAX package writes;
+     JoinOmnisci 2^20, TwoPassScan, DPLScan and DPLScanCuda 2^24, three
+     iterations each) and requires every result to be valid, every kernel
+     of a dwarf's path to have launched in its run, and the CSV header to
+     be the one the JAX package writes; then calls filter_sparse where its
+     caps trip (the ``filter`` kernel's path) and, under CUDA's sync debug
+     mode, where the dwarfs call it;
   4. prints one JSON line with each kernel's launches, error and times, and
      last the JSON line ``{"ok": true, "device": {...}}``.
 
@@ -50,7 +53,17 @@ KERNELS = {
                       "dwarf_bench_tpu/ops/groupby_pallas.py:307"),
     "weighted_histogram": ("dwarf_bench_tpu_torch/csrc/hist.cu",
                            "dwarf_bench_tpu/ops/hist_pallas.py:482"),
+    "scan_tail_streams": ("dwarf_bench_tpu_torch/csrc/scan_tail.cu",
+                          "dwarf_bench_tpu/ops/scan_tail_pallas.py:47"),
+    "compact_mask": ("dwarf_bench_tpu_torch/csrc/compact.cu",
+                     "dwarf_bench_tpu/ops/compact_pallas.py:195"),
+    "emit_prefix": ("dwarf_bench_tpu_torch/csrc/compact.cu",
+                    "dwarf_bench_tpu/ops/compact_pallas.py:225"),
+    "filter": ("dwarf_bench_tpu_torch/csrc/filter.cu",
+               "dwarf_bench_tpu/ops/scan_pallas.py:80"),
 }
+
+SCAN_KERNELS = ("scan_tail_streams", "compact_mask", "emit_prefix")
 
 DWARF_RUNS = [
     # (dwarf, rows, extra CLI flags, kernels its path must launch)
@@ -58,6 +71,11 @@ DWARF_RUNS = [
     ("GroupBy", 1 << 22, ["--groups_count=64"], ("groupby_small",)),
     ("GroupBy", 1 << 20, ["--groups_count=65536"], ("weighted_histogram",)),
     ("JoinOmnisci", 1 << 20, [], ("histogram",)),
+    # the reference's scan: x < 5 over 2^24 uniform [1, 10000] (bench.py
+    # run_scan); DPLScanCuda is pinned to the GPU whatever --device says
+    ("TwoPassScan", 1 << 24, [], SCAN_KERNELS),
+    ("DPLScan", 1 << 24, [], SCAN_KERNELS),
+    ("DPLScanCuda", 1 << 24, [], SCAN_KERNELS),
 ]
 
 
@@ -92,7 +110,15 @@ def phase_kernels(dev):
     {kernel: {"max_abs_err", "ms", "plain_ms"}} with the times taken at the
     kernel's first (main-path) case."""
     from dwarf_bench_tpu_torch.common.datagen import make_random
-    from dwarf_bench_tpu_torch.ops import cumsum_cuda, groupby_cuda, hist_cuda
+    from dwarf_bench_tpu_torch.ops import (
+        compact_cuda,
+        cumsum_cuda,
+        filter_cuda,
+        groupby_cuda,
+        hist_cuda,
+        scan_tail_cuda,
+    )
+    from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
     from dwarf_bench_tpu_torch.utils.timing import kernel_time, sync
 
     rng = np.random.default_rng(20261016)
@@ -102,15 +128,24 @@ def phase_kernels(dev):
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
-    def run(name, label, kernel, plain, *args, timed=False):
-        got = sync(kernel(*args))
-        exp = sync(plain(*args))
-        check(got.shape == exp.shape and got.dtype == exp.dtype,
-              f"{name} [{label}]: {got.shape}/{got.dtype} vs "
-              f"{exp.shape}/{exp.dtype}")
-        err = 0
-        if got.numel():
-            err = int((got.to(torch.int64) - exp.to(torch.int64)).abs().max())
+    def whole(res):
+        return [], [(res, res.numel())]
+
+    def run(name, label, kernel, plain, *args, view=whole, timed=False):
+        """Kernel against twin on ``args``. ``view`` maps a result to
+        (counts, [(tensor, slots that hold data)]): a compaction's output is
+        garbage past its count, so only the twin's slots are compared."""
+        got_counts, got = view(sync(kernel(*args)))
+        exp_counts, exp = view(sync(plain(*args)))
+        err = max((abs(int(a) - int(b))
+                   for a, b in zip(got_counts, exp_counts)), default=0)
+        for g, (e, k) in zip((g for g, _ in got), exp):
+            check(g.shape == e.shape and g.dtype == e.dtype,
+                  f"{name} [{label}]: {g.shape}/{g.dtype} vs "
+                  f"{e.shape}/{e.dtype}")
+            if k:
+                err = max(err, int((g[:k].to(torch.int64)
+                                    - e[:k].to(torch.int64)).abs().max()))
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
         line = f"kernel {name} [{label}]: max_abs_err={err}"
         if timed:
@@ -189,6 +224,98 @@ def phase_kernels(dev):
     run("weighted_histogram", "single bin, sums cross 2^32", w, wp,
         t(np.full(20_011, 127)), t(np.full(20_011, i32max)), 1)
     run("weighted_histogram", "n=1", w, wp, t([65535]), t([9]), 512)
+
+    # -- the sparse scan's kernels (filter_sparse at 2^24, x < 5) --------
+    def counted(cap):
+        """View of (out, count) and (outs, count) results."""
+        def view(res):
+            outs, count = res
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            return [count], [(o, min(int(count), cap)) for o in outs]
+        return view
+
+    def prefix(length):
+        return lambda res: ([], [(res, length)])
+
+    def tail(cap_single, cap_mc):
+        def view(res):
+            spos, sval, mids, mbase, ns, nm = res
+            ks, km = min(int(ns), cap_single), min(int(nm), cap_mc)
+            # spos is the sentinel past n_single: compared whole
+            return [ns, nm], [(spos, cap_single), (sval, ks), (mids, km),
+                              (mbase, km)]
+        return view
+
+    scan_n = 1 << 24
+    scan_x = t(make_random(scan_n, seed=7))
+    deep_x = make_random(1 << 20, seed=9)
+    deep_x[rng.integers(0, 1 << 20, 1000)] = -700  # out-of-window singles
+
+    f, fp = filter_cuda.filter, filter_cuda.filter_plain
+    run("filter", "x<5 n=2^24", f, fp, scan_x, 5, scan_n,
+        view=counted(scan_n), timed=True)
+    run("filter", "x<5000 n=2^20 (sel50)", f, fp,
+        t(make_random(1 << 20, seed=8)), 5000, 1 << 20,
+        view=counted(1 << 20), timed=True)
+    run("filter", "n=1", f, fp, t([4]), 5, 1, view=counted(1))
+    run("filter", "nothing kept", f, fp, t(rng.integers(5, 10000, 70_001)),
+        5, 70_001, view=counted(70_001))
+    run("filter", "everything kept, unaligned n", f, fp,
+        t(rng.integers(-100, 5, 100_003)), 5, 100_003,
+        view=counted(100_003))
+    run("filter", "count > capacity", f, fp,
+        t(rng.integers(1, 10000, 1_000_003)), 5000, 4096,
+        view=counted(4096))
+    run("filter", "INT32_MIN and INT32_MAX", f, fp,
+        t(rng.choice([i32min, i32max, 4, 5], 65_537)), 5, 65_537,
+        view=counted(65_537))
+    run("filter", "threshold INT32_MIN", f, fp, t([i32min, 0]), i32min, 2,
+        view=counted(2))
+
+    st, stp = scan_tail_cuda.scan_tail_streams, \
+        scan_tail_cuda.scan_tail_streams_plain
+    stat, base = chunk_stats(scan_x.view(-1, 128), 5)
+    run("scan_tail_streams", "chunk_stats of the 2^24 scan", st, stp,
+        stat, base, 5, 16384, 512, view=tail(16384, 512), timed=True)
+    dstat, dbase = chunk_stats(t(deep_x).view(-1, 128), 5)
+    run("scan_tail_streams", "out-of-window singles", st, stp,
+        dstat, dbase, 5, 16384, 512, view=tail(16384, 512))
+    run("scan_tail_streams", "counts > caps", st, stp,
+        dstat, dbase, 5, 7, 3, view=tail(7, 3))
+    run("scan_tail_streams", "nch=1", st, stp, t([512 + 3]), t([0]), 5,
+        16384, 512, view=tail(16384, 512))
+
+    cm, cmp = compact_cuda.compact_mask, compact_cuda.compact_mask_plain
+    gm = torch.from_numpy(rng.random(65536) < 2 / 128).to(dev)
+    run("compact_mask", "65536 rows x 2 cols, capacity 4096", cm, cmp, gm,
+        (t(rng.integers(0, scan_n, 65536)), t(rng.integers(1, 5, 65536))),
+        4096, view=counted(4096), timed=True)
+    scan_mask = scan_x < 5
+    run("compact_mask", "2^24 rows x 1 col", cm, cmp, scan_mask, (scan_x,),
+        scan_n, view=counted(scan_n), timed=True)
+    run("compact_mask", "2^24 rows x 3 cols", cm, cmp, scan_mask,
+        (scan_x, scan_x + 1, scan_x - 1), scan_n, view=counted(scan_n),
+        timed=True)
+    def ones(n, keep):
+        return torch.full((n,), keep, dtype=torch.bool, device=dev)
+
+    run("compact_mask", "n=1", cm, cmp, ones(1, True), (t([i32min]),), 1,
+        view=counted(1))
+    run("compact_mask", "nothing kept", cm, cmp, ones(70_001, False),
+        (t(rng.integers(0, 9, 70_001)),), 70_001, view=counted(70_001))
+    run("compact_mask", "everything kept, count > capacity", cm, cmp,
+        ones(100_003, True), (t(rng.integers(i32min, i32max, 100_003)),) * 3,
+        4096, view=counted(4096))
+
+    e, ep = compact_cuda.emit_prefix, compact_cuda.emit_prefix_plain
+    run("emit_prefix", "L=20480 into 2^24", e, ep,
+        t(rng.integers(i32min, i32max, 20480)), scan_n, view=prefix(20480),
+        timed=True)
+    run("emit_prefix", "L = capacity", e, ep, t(np.arange(128)), 128,
+        view=prefix(128))
+    run("emit_prefix", "L=37, capacity 40", e, ep,
+        t(rng.integers(i32min, i32max, 37)), 40, view=prefix(37))
+    run("emit_prefix", "L=0", e, ep, t([]), 16, view=prefix(0))
     return stats
 
 
@@ -229,9 +356,55 @@ def phase_dwarfs(device_flag):
                 f"median_host_time_ms={hosts[1] * 1e3!r}",
                 flush=True,
             )
+        scan_ops(torch.device("cuda:0"))
         launches = dict(_build.LAUNCHES)
     print(f"launches in the dwarf phase: {launches}", flush=True)
     return launches
+
+
+def scan_ops(dev):
+    """filter_sparse called directly, where the dwarfs cannot reach:
+    - the caps trip (2^20 rows, x < 5000: the data and predicate of bench.py
+      run_scan_sel50_extra) with assume_sparse=False, so the general
+      ``filter`` kernel runs, and the result must equal filter_oracle;
+    - the dwarfs' assume_sparse=True call at 2^24 under CUDA's sync debug
+      mode "error", which raises if anything reads the card back to the
+      host between the input and the returned (out, count)."""
+    from dwarf_bench_tpu_torch.common.datagen import make_random
+    from dwarf_bench_tpu_torch.ops import _build, scan
+    from dwarf_bench_tpu_torch.utils.timing import kernel_time
+
+    x = make_random(1 << 20, seed=8)
+    xd = torch.from_numpy(x).to(dev)
+    before = _build.LAUNCHES["filter"]
+    check(not scan.sparse_caps_ok(x, 5000), "sel50 data fits the sparse caps")
+    out, count = scan.filter_sparse(xd, 5000)
+    expected = scan.filter_oracle(x, 5000)
+    check(int(count) == len(expected) and np.array_equal(
+        out[: len(expected)].cpu().numpy(), expected),
+        "filter_sparse 2^20 x<5000: differs from filter_oracle")
+    check(_build.LAUNCHES["filter"] > before,
+          "filter_sparse 2^20 x<5000: kernel filter was not launched")
+    ms = kernel_time(scan.filter_sparse, xd, 5000) * 1e3
+    print(f"filter_sparse 2^20 x<5000 (caps trip): valid, "
+          f"kernel_time_ms={ms!r}", flush=True)
+
+    x = make_random(1 << 24, seed=7)
+    xd = torch.from_numpy(x).to(dev)
+    check(scan.sparse_caps_ok(x), "scan data does not fit the sparse caps")
+    scan.filter_sparse(xd, assume_sparse=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, count = scan.filter_sparse(xd, assume_sparse=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    expected = scan.filter_oracle(x)
+    check(int(count) == len(expected) and np.array_equal(
+        out[: len(expected)].cpu().numpy(), expected),
+        "filter_sparse 2^24 x<5: differs from filter_oracle")
+    print("filter_sparse 2^24 x<5 assume_sparse: valid, no host read",
+          flush=True)
 
 
 def main() -> int:

@@ -1,0 +1,75 @@
+// Mask compaction of 1-3 int32 columns, and the prefix emit.
+//
+// dbt_compact_mask replaces dwarf_bench_tpu/ops/compact_pallas.py:195
+// compact_mask_pallas (kernel _compact_mask_call, :61): copy_if of each
+// column by one mask, keeping order, into `capacity` slots, with the full
+// count. One set of ranks (compact.cuh) serves every column, as the TPU
+// kernel's one set of butterfly routing decisions does. The mask is one byte
+// a row (torch.bool). Bound by reading the mask twice; the columns are read
+// only at kept rows.
+//
+// dbt_emit_prefix replaces compact_pallas.py:225 emit_prefix_pallas: the
+// first `len` values into slots [0, len) of an uninitialised buffer, the rest
+// left as it is (garbage past the caller's count, by contract). A plain
+// vector copy; on the scan's path it moves 80 KB.
+#include "compact.cuh"
+
+namespace {
+
+struct MaskOp {
+  using Item = uint8_t;
+  const uint8_t* mask;
+  const int32_t* col[3];
+  int32_t* out[3];
+  int ncols;
+  int64_t cap[1];
+
+  __device__ Item load(int64_t i) const { return mask[i]; }
+  __device__ void flags(Item m, bool (&keep)[1]) const { keep[0] = m != 0; }
+  __device__ void emit(Item, int64_t i, int, int64_t pos) const {
+    // unrolled, so the pointer arrays are indexed by constants and stay in
+    // registers (a loop bound by ncols put a copy of the Op on the stack)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (c < ncols) out[c][pos] = col[c][i];
+    }
+  }
+};
+
+__global__ void copy_prefix(const int32_t* __restrict__ v, int64_t len,
+                            int32_t* __restrict__ out) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < len;
+       i += stride) {
+    out[i] = v[i];
+  }
+}
+
+}  // namespace
+
+// int32 scratch words per stream that a compaction of n rows needs.
+extern "C" int64_t dbt_compact_tiles(int64_t n) {
+  return dbt::compaction_tiles(n);
+}
+
+// cols/outs hold ncols (1-3) pointers; unused ones may be null. count points
+// to one int32 on the device; scratch holds dbt_compact_tiles(n) words.
+extern "C" int dbt_compact_mask(const uint8_t* mask, const int32_t* c0,
+                                const int32_t* c1, const int32_t* c2,
+                                int32_t ncols, int64_t n, int32_t* o0,
+                                int32_t* o1, int32_t* o2, int64_t capacity,
+                                int32_t* count, int32_t* scratch,
+                                void* stream) {
+  MaskOp op{mask, {c0, c1, c2}, {o0, o1, o2}, ncols, {capacity}};
+  return static_cast<int>(dbt::compact_streams<1>(
+      op, n, count, scratch, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int dbt_emit_prefix(const int32_t* vals, int64_t len, int32_t* out,
+                               void* stream) {
+  if (len > 0) {
+    copy_prefix<<<dbt::grid_for(len, 256, 8), 256, 0,
+                  static_cast<cudaStream_t>(stream)>>>(vals, len, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

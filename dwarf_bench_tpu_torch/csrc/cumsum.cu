@@ -22,41 +22,11 @@
 
 namespace {
 
+using dbt::block_exclusive_scan;
+
 constexpr int kThreads = 512;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
-
-__device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t v) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const uint32_t t = __shfl_up_sync(0xffffffffu, v, d);
-    if (lane >= d) v += t;
-  }
-  return v;
-}
-
-// Exclusive scan of one value per thread across the block (blockDim.x a
-// multiple of 32). Writes the block's total to *total. Every thread of the
-// block must call it.
-__device__ uint32_t block_exclusive_scan(uint32_t v, uint32_t* total) {
-  __shared__ uint32_t warp_sums[32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const uint32_t inc = warp_inclusive_scan(v);
-  if (lane == 31) warp_sums[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    const uint32_t w = lane < nwarps ? warp_sums[lane] : 0u;
-    warp_sums[lane] = warp_inclusive_scan(w);
-  }
-  __syncthreads();
-  const uint32_t before = warp == 0 ? 0u : warp_sums[warp - 1];
-  *total = warp_sums[nwarps - 1];
-  __syncthreads();  // warp_sums is reused by the next call
-  return before + inc - v;
-}
 
 __global__ void tile_sums(const int32_t* __restrict__ x, int64_t n,
                           uint32_t* __restrict__ sums) {

@@ -10,16 +10,21 @@ from __future__ import annotations
 from ..common.registry import Registry
 from .groupby import GroupBy, GroupByCuda
 from .join import JoinOmnisci, JoinOmnisciCuda
+from .scan import DPLScan, DPLScanCuda, TwoPassScan
 from .sort import Radix, RadixCuda, TBBSort
 
 _ALL_DWARFS = (
+    # EXPERIMENTAL gate (register_dwarfs.cpp:22-26)
+    TwoPassScan,
     # always (register_dwarfs.cpp:28)
     TBBSort,
     # DPCPP_ENABLED gate (register_dwarfs.cpp:30-40)
+    DPLScan,
     Radix,
     GroupBy,
     JoinOmnisci,
     # CUDA_ENABLED gate (register_dwarfs.cpp:48-53)
+    DPLScanCuda,
     RadixCuda,
     JoinOmnisciCuda,
     GroupByCuda,

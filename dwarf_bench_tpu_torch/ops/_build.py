@@ -53,6 +53,17 @@ _SIGNATURES = {
     "dbt_groupby_small": ([_P, _P, _I64, _P, _I32, _P], ctypes.c_int),
     "dbt_cumsum": ([_P, _I64, _P, _P, _P, _P], ctypes.c_int),
     "dbt_cumsum_scratch": ([_I64], _I64),
+    "dbt_compact_tiles": ([_I64], _I64),
+    "dbt_filter": ([_P, _I64, _I32, _P, _I64, _P, _P, _P], ctypes.c_int),
+    "dbt_compact_mask": (
+        [_P, _P, _P, _P, _I32, _I64, _P, _P, _P, _I64, _P, _P, _P],
+        ctypes.c_int,
+    ),
+    "dbt_emit_prefix": ([_P, _I64, _P, _P], ctypes.c_int),
+    "dbt_scan_tail_streams": (
+        [_P, _P, _I64, _I32, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
+        ctypes.c_int,
+    ),
     "dbt_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -61,6 +72,10 @@ LAUNCHES: Dict[str, int] = {
     "cumsum": 0,
     "groupby_small": 0,
     "weighted_histogram": 0,
+    "scan_tail_streams": 0,
+    "compact_mask": 0,
+    "emit_prefix": 0,
+    "filter": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -154,6 +169,16 @@ def scratch_words(n: int) -> int:
     return int(library().dbt_cumsum_scratch(n))
 
 
+def compact_scratch(n: int, streams: int, device: torch.device) -> torch.Tensor:
+    """Scratch for a compaction of ``n`` rows into ``streams`` streams
+    (``csrc/compact.cuh``): one int32 word per tile and stream. Counts and
+    ranks are int32, so ``n`` must be below 2^31."""
+    if n >= 2**31:
+        raise ValueError(f"compaction of {n} rows: counts are int32")
+    words = streams * int(library().dbt_compact_tiles(n))
+    return torch.empty(max(words, 1), dtype=torch.int32, device=device)
+
+
 def check_vectors(op: str, *tensors: torch.Tensor) -> torch.device:
     """Every tensor is 1-D, int32, contiguous, and on one device; returns
     that device. Raises ValueError otherwise."""
@@ -173,3 +198,19 @@ def check_vectors(op: str, *tensors: torch.Tensor) -> torch.device:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{op}: unsupported device {device}")
     return device
+
+
+def check_int32(op: str, name: str, value) -> int:
+    """``value`` as a Python int; raises ValueError outside int32."""
+    v = int(value)
+    if not -(2**31) <= v < 2**31:
+        raise ValueError(f"{op}: {name} {v} is not an int32")
+    return v
+
+
+def check_capacity(op: str, capacity, n: int) -> int:
+    """The slot count of a compaction's output (``n`` when None)."""
+    cap = n if capacity is None else int(capacity)
+    if cap < 0:
+        raise ValueError(f"{op}: capacity {cap} is negative")
+    return cap

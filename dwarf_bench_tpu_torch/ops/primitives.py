@@ -25,6 +25,42 @@ def as_u32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int64) & (_U32 - 1)
 
 
+def exclusive_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Exclusive int32 prefix sum (oneDPL exclusive_scan)."""
+    return torch.cumsum(x, dim, dtype=torch.int32) - x
+
+
+def compact_multi(arrays, mask: torch.Tensor, capacity=None, fill: int = 0):
+    """copy_if of several same-length columns by one mask, keeping order:
+    ``(tuple_of_outs, count)``. Each out has ``capacity`` slots (default:
+    the column length); writes at or past ``capacity`` are dropped, and
+    ``count`` (a 0-d int32 tensor) is the full number of selected rows. The
+    count stays on the tensors' device: nothing is read back to the host."""
+    n = mask.shape[0]
+    if capacity is None:
+        capacity = n
+    m = mask.to(torch.int32)
+    pos = exclusive_cumsum(m)
+    count = (pos[-1] + m[-1]) if n > 0 else torch.zeros(
+        (), dtype=torch.int32, device=mask.device)
+    # unselected and out-of-capacity rows go to one spare slot past the end
+    idx = torch.where((m > 0) & (pos < capacity), pos, capacity).to(torch.int64)
+    outs = []
+    for a in arrays:
+        o = torch.full((capacity + 1,), fill, dtype=a.dtype, device=a.device)
+        o[idx] = a
+        outs.append(o[:capacity])
+    return tuple(outs), count
+
+
+def compact(values: torch.Tensor, mask: torch.Tensor, capacity=None,
+            fill: int = 0):
+    """copy_if: ``values[mask]`` to the front of a ``capacity`` buffer,
+    keeping order; returns ``(out, count)`` as ``compact_multi`` does."""
+    (out,), count = compact_multi((values,), mask, capacity, fill)
+    return out, count
+
+
 def sort_by_key(keys: torch.Tensor, *values: torch.Tensor, stable: bool = True):
     """Sort a key column with payload columns (the JAX package's
     ``lax.sort`` with ``num_keys=1``). Keys compare as signed int32; a caller

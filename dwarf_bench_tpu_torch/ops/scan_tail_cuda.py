@@ -1,0 +1,80 @@
+"""The sparse filter's chunk-level tail: CUDA kernel (``csrc/scan_tail.cu``)
+and its plain PyTorch twin.
+
+The contract of ``dwarf_bench_tpu/ops/scan_tail_pallas.py``
+``scan_tail_streams``: from the (nch,) int32 ``stat`` and ``base`` of
+``ops/chunk_stats``, a chunk is *single* when cnt == 1 and 1 <= vsw <= 255
+(cnt = stat >> 9, vsw = stat & 511) and *multi* when cnt >= 1 and it is not
+single. Returns ``(spos, sval, mids, mbase, n_single, n_multi)``:
+
+  * singles' (base, threshold - vsw), in chunk order, in ``cap_single``
+    slots; ``spos`` is 0x7FFFFFFF past ``n_single``, ``sval`` garbage;
+  * multis' (chunk id, base), in chunk order, in ``cap_mc`` slots, garbage
+    past ``n_multi``;
+  * ``n_single`` and ``n_multi``: the full counts, 0-d int32 tensors on the
+    input's device.
+
+A wrapper takes the twin only for a CPU tensor; for a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .primitives import compact_multi
+
+BIG = 0x7FFFFFFF  # position sentinel: sorts after every real position
+
+
+def _check(stat, base, threshold, cap_single, cap_mc):
+    device = _build.check_vectors("scan_tail_streams", stat, base)
+    if stat.numel() != base.numel():
+        raise ValueError(f"scan_tail_streams: {stat.numel()} stats but "
+                         f"{base.numel()} bases")
+    thr = _build.check_int32("scan_tail_streams", "threshold", threshold)
+    cap_single, cap_mc = int(cap_single), int(cap_mc)
+    if min(cap_single, cap_mc) < 0:
+        raise ValueError(f"scan_tail_streams: negative caps {cap_single}, "
+                         f"{cap_mc}")
+    return device, thr, cap_single, cap_mc
+
+
+def scan_tail_streams_plain(stat, base, threshold: int, cap_single: int,
+                            cap_mc: int):
+    _, thr, cap_single, cap_mc = _check(stat, base, threshold, cap_single,
+                                        cap_mc)
+    cnt, vsw = stat >> 9, stat & 511
+    single = (cnt == 1) & (vsw >= 1) & (vsw <= 255)
+    multi = (cnt >= 1) & ~single
+    (spos, sval), n_single = compact_multi((base, thr - vsw), single,
+                                           cap_single)
+    ids = torch.arange(stat.numel(), dtype=torch.int32, device=stat.device)
+    (mids, mbase), n_multi = compact_multi((ids, base), multi, cap_mc)
+    iota = torch.arange(cap_single, dtype=torch.int32, device=stat.device)
+    spos = torch.where(iota < n_single, spos, BIG)
+    return spos, sval, mids, mbase, n_single, n_multi
+
+
+def scan_tail_streams(stat, base, threshold: int, cap_single: int,
+                      cap_mc: int):
+    device, thr, cap_single, cap_mc = _check(stat, base, threshold,
+                                             cap_single, cap_mc)
+    if device.type == "cpu":
+        return scan_tail_streams_plain(stat, base, thr, cap_single, cap_mc)
+    nch = stat.numel()
+
+    def empty(k):
+        return torch.empty(k, dtype=torch.int32, device=device)
+
+    spos, sval, mids, mbase = (empty(cap_single), empty(cap_single),
+                               empty(cap_mc), empty(cap_mc))
+    counts = empty(2)
+    scratch = _build.compact_scratch(nch, 2, device)
+    _build.launch("dbt_scan_tail_streams", device, stat.data_ptr(),
+                  base.data_ptr(), nch, thr, spos.data_ptr(), sval.data_ptr(),
+                  cap_single, mids.data_ptr(), mbase.data_ptr(), cap_mc,
+                  counts.data_ptr(), scratch.data_ptr())
+    _build.LAUNCHES["scan_tail_streams"] += 1
+    return spos, sval, mids, mbase, counts[0], counts[1]

@@ -13,7 +13,17 @@ import pytest
 import torch
 
 from dwarf_bench_tpu_torch import cli, populate_registry
-from dwarf_bench_tpu_torch.ops import _build, cumsum_cuda, groupby_cuda, hist_cuda
+from dwarf_bench_tpu_torch.ops import (
+    _build,
+    compact_cuda,
+    cumsum_cuda,
+    filter_cuda,
+    groupby_cuda,
+    hist_cuda,
+    scan,
+    scan_tail_cuda,
+)
+from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
 
 pytestmark = pytest.mark.gpu
 
@@ -69,6 +79,90 @@ def test_groupby_small(cuda, rng, num_groups):
                        groupby_cuda.groupby_small_plain(k, v, num_groups))
 
 
+def _same_prefix(got, exp, k):
+    """Equal in the first k slots (the rest is garbage by contract)."""
+    return got.shape == exp.shape and torch.equal(got[:k], exp[:k])
+
+
+@pytest.mark.parametrize("threshold", [1, 5, 5000, 10001, -(2**31)])
+@pytest.mark.parametrize("n", [1, 4097, 1_000_003])
+def test_filter(cuda, rng, n, threshold):
+    x = _t(rng.integers(1, 10000, n, endpoint=True), cuda)
+    x[: min(n, 2)] = torch.tensor([-(2**31), 2**31 - 1][: min(n, 2)])
+    for cap in (n, n // 3):
+        out, count = filter_cuda.filter(x, threshold, cap)
+        pout, pcount = filter_cuda.filter_plain(x, threshold, cap)
+        assert count.shape == () and int(count) == int(pcount)
+        assert _same_prefix(out, pout, min(int(count), cap))
+
+
+@pytest.mark.parametrize("ncols", [1, 2, 3])
+@pytest.mark.parametrize("n,sel", [(1, 1.0), (65536, 0.02), (1_000_003, 0.0),
+                                   (1_000_003, 0.5), (70_001, 1.0)])
+def test_compact_mask(cuda, rng, ncols, n, sel):
+    mask = torch.from_numpy(rng.random(n) < sel).to(cuda)
+    cols = [_t(rng.integers(-(2**31), 2**31, n), cuda) for _ in range(ncols)]
+    for cap in (n, 4096):
+        outs, count = compact_cuda.compact_mask(mask, cols, cap)
+        pouts, pcount = compact_cuda.compact_mask_plain(mask, cols, cap)
+        assert int(count) == int(pcount)
+        k = min(int(count), cap)
+        assert all(_same_prefix(o, p, k) for o, p in zip(outs, pouts))
+
+
+@pytest.mark.parametrize("length,cap", [(0, 16), (37, 40), (128, 128),
+                                        (20480, 1 << 24)])
+def test_emit_prefix(cuda, rng, length, cap):
+    v = _t(rng.integers(-(2**31), 2**31, length), cuda)
+    assert _same_prefix(compact_cuda.emit_prefix(v, cap),
+                        compact_cuda.emit_prefix_plain(v, cap), length)
+
+
+@pytest.mark.parametrize("density", [0.0, 5e-4, 1e-2])
+@pytest.mark.parametrize("nch", [1, 2048, 131072])
+def test_scan_tail_streams(cuda, rng, nch, density):
+    x = rng.integers(1, 10001, (nch, 128))
+    hit = rng.random((nch, 128)) < density
+    x[hit] = rng.integers(-1000, 5, hit.sum())  # some below the window
+    stat, base = chunk_stats(_t(x, cuda), 5)
+    for caps in ((16384, 512), (7, 3)):
+        got = scan_tail_cuda.scan_tail_streams(stat, base, 5, *caps)
+        exp = scan_tail_cuda.scan_tail_streams_plain(stat, base, 5, *caps)
+        ns, nm = int(exp[4]), int(exp[5])
+        assert (int(got[4]), int(got[5])) == (ns, nm)
+        assert torch.equal(got[0], exp[0])  # spos is BIG past ns
+        assert _same_prefix(got[1], exp[1], min(ns, caps[0]))
+        assert _same_prefix(got[2], exp[2], min(nm, caps[1]))
+        assert _same_prefix(got[3], exp[3], min(nm, caps[1]))
+
+
+@pytest.mark.parametrize("n,threshold,deep", [(1 << 20, 5, 0), (1 << 20, 5, 40),
+                                              (100_003, 5, 5), (1 << 20, 5000, 0)])
+def test_filter_sparse_matches_oracle(cuda, rng, n, threshold, deep):
+    x = rng.integers(1, 10000, n, endpoint=True).astype(np.int32)
+    x[rng.integers(0, n, deep)] = -700
+    expected = scan.filter_oracle(x, threshold)
+    runs = [{}]
+    if scan.sparse_caps_ok(x, threshold):
+        runs.append({"assume_sparse": True})
+    for kw in runs:
+        out, count = scan.filter_sparse(_t(x, cuda), threshold, **kw)
+        assert int(count) == len(expected)
+        assert np.array_equal(out[: len(expected)].cpu().numpy(), expected)
+
+
+def test_filter_sparse_assume_sparse_reads_nothing_back(cuda, rng):
+    x = _t(rng.integers(1, 10000, 1 << 20, endpoint=True), cuda)
+    scan.filter_sparse(x, assume_sparse=True)  # build and warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, count = scan.filter_sparse(x, assume_sparse=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.is_cuda and count.is_cuda
+
+
 def test_wrappers_count_their_launches(cuda):
     k = torch.zeros(10, dtype=torch.int32, device=cuda)
     before = dict(_build.LAUNCHES)
@@ -76,16 +170,31 @@ def test_wrappers_count_their_launches(cuda):
     hist_cuda.weighted_histogram(k, k, 8)
     groupby_cuda.groupby_small(k, k, 8)
     cumsum_cuda.cumsum(k)
+    filter_cuda.filter(k, 5)
+    compact_cuda.compact_mask(k > 0, (k,))
+    compact_cuda.emit_prefix(k, 10)
+    scan_tail_cuda.scan_tail_streams(k, k, 5, 4, 4)
     hist_cuda.histogram_plain(k, 8)
+    filter_cuda.filter_plain(k, 5)
     assert {n: _build.LAUNCHES[n] - before[n] for n in before} == {
         "histogram": 1, "cumsum": 1, "groupby_small": 1,
-        "weighted_histogram": 1,
+        "weighted_histogram": 1, "filter": 1, "compact_mask": 1,
+        "emit_prefix": 1, "scan_tail_streams": 1,
     }
 
 
 def test_wrapper_rejects_int64_on_gpu(cuda):
     with pytest.raises(ValueError):
         hist_cuda.histogram(torch.zeros(4, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        filter_cuda.filter(torch.zeros(4, dtype=torch.int64, device=cuda))
+    # the sparse filter's general engine for non-int32 input is the same
+    # int32-only kernel on the card
+    with pytest.raises(ValueError):
+        scan.filter_sparse(torch.zeros(4, dtype=torch.int64, device=cuda))
+
+
+SCAN_KERNELS = ("scan_tail_streams", "compact_mask", "emit_prefix")
 
 
 @pytest.mark.parametrize("dwarf,extra,kernels", [
@@ -93,10 +202,14 @@ def test_wrapper_rejects_int64_on_gpu(cuda):
     ("GroupByCuda", ["--groups_count=64"], ("groupby_small",)),
     ("GroupByCuda", ["--groups_count=65536"], ("weighted_histogram",)),
     ("JoinOmnisciCuda", [], ("histogram",)),
+    ("TwoPassScan", ["--device=gpu"], SCAN_KERNELS),
+    ("DPLScan", ["--device=gpu"], SCAN_KERNELS),
+    ("DPLScanCuda", [], SCAN_KERNELS),
 ])
 def test_dwarfs_run_through_the_kernels(cuda, tmp_path, dwarf, extra, kernels):
     before = dict(_build.LAUNCHES)
-    rc = cli.main([dwarf, "--input_size", "1000", "65536", "--iterations=2",
+    size = "1048576" if kernels is SCAN_KERNELS else "65536"
+    rc = cli.main([dwarf, "--input_size", "1000", size, "--iterations=2",
                    f"--report_path={tmp_path / 'r.csv'}", *extra])
     assert rc == 0
     results = populate_registry().find(dwarf).get_results()

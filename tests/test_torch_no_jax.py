@@ -37,6 +37,7 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import dwarf_bench_tpu_torch, dwarf_bench_tpu_torch.cli\n"
         "import dwarf_bench_tpu_torch.ops.csr_join, chip_smoke\n"
+        "import dwarf_bench_tpu_torch.ops.scan, dwarf_bench_tpu_torch.dwarfs.scan\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dwarf_bench_tpu'))\n"
         "assert not bad, bad\n"

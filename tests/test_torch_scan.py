@@ -1,0 +1,172 @@
+"""The sparse scan slice on the CPU: ``ops/scan.py`` held exactly against
+the JAX package's ``filter_sparse`` (interpret mode, which forces its fused
+accelerator structure), ``filter_two_pass``, ``filter_xla`` and
+``sparse_caps_ok``, and the scan dwarfs through ``python -m
+dwarf_bench_tpu_torch`` against the JAX CLI's CSV. Outputs are compared up
+to their count: the rest is garbage by contract."""
+
+import contextlib
+import io
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dwarf_bench_tpu.cli import main as jax_main
+from dwarf_bench_tpu.ops import scan as jax_scan
+from dwarf_bench_tpu_torch.ops import scan
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _data(rng, n, deep=0):
+    x = rng.integers(1, 10000, n, endpoint=True).astype(np.int32)
+    if deep:
+        x[rng.integers(0, n, deep)] = -700  # singles below the window
+    return x
+
+
+def _same(got, ref, x, threshold):
+    (out, count), (rout, rcount) = got, ref
+    expected = scan.filter_oracle(x, threshold)
+    assert count.shape == () and count.dtype == torch.int32
+    assert int(count) == int(rcount) == len(expected)
+    assert np.array_equal(out.numpy()[: len(expected)], expected)
+    assert np.array_equal(np.asarray(rout)[: len(expected)], expected)
+
+
+@pytest.mark.parametrize("n,threshold,deep,caps", [
+    (1 << 18, 5, 0, {}),        # benchmark selectivity: the sparse branch
+    (1 << 18, 5, 40, {}),       # out-of-window singles take the gather path
+    (100_000, 5, 5, {}),        # n not a multiple of 128
+    (100_000, 5000, 0, {}),     # dense: the caps trip, general branch
+    (100_000, 5, 0, {"cap_single": 16}),  # one cap trips
+])
+def test_filter_sparse_matches_jax(rng, n, threshold, deep, caps):
+    x = _data(rng, n, deep)
+    ref = jax_scan.filter_sparse(jnp.asarray(x), threshold, interpret=True,
+                                 **caps)
+    runs = [False]
+    if jax_scan.sparse_caps_ok(x, threshold, **caps):
+        runs.append(True)
+    for assume in runs:
+        got = scan.filter_sparse(torch.from_numpy(x), threshold,
+                                 assume_sparse=assume, **caps)
+        _same(got, ref, x, threshold)
+
+
+def test_filter_sparse_assume_sparse_matches_jax(rng):
+    x = _data(rng, 1 << 18, 40)
+    assert scan.sparse_caps_ok(x)
+    ref = jax_scan.filter_sparse(jnp.asarray(x), interpret=True,
+                                 assume_sparse=True)
+    _same(scan.filter_sparse(torch.from_numpy(x), assume_sparse=True), ref,
+          x, scan.DEFAULT_THRESHOLD)
+
+
+@pytest.mark.parametrize("threshold,capacity", [(5, None), (5000, None),
+                                                (5000, 1000)])
+def test_filter_two_pass_and_xla_match_jax(rng, threshold, capacity):
+    x = _data(rng, 100_003)
+    k = min(int((x < threshold).sum()),
+            len(x) if capacity is None else capacity)
+    for port, jax_fn in ((scan.filter_two_pass, jax_scan.filter_two_pass),
+                         (scan.filter_xla, jax_scan.filter_xla)):
+        out, count = port(torch.from_numpy(x), threshold, capacity)
+        rout, rcount = jax_fn(jnp.asarray(x), threshold, capacity=capacity)
+        assert int(count) == int(rcount) and count.dtype == torch.int32
+        assert out.shape == rout.shape
+        assert np.array_equal(out.numpy()[:k], np.asarray(rout)[:k])
+
+
+def _caps_cases(rng):
+    dense = _data(rng, 50_000)
+    yield _data(rng, 1 << 16), 5
+    yield _data(rng, 1 << 16, 3000), 5   # too many multi chunks
+    yield dense, 5000                    # too many elements
+    yield dense, 10001
+    yield dense, -(2**31) + 512          # window arithmetic would wrap
+    yield dense, -(2**31) + 513
+    yield dense.astype(np.int64), 5      # not int32
+    yield np.array([4], np.int32), 5
+
+
+def test_sparse_caps_ok_matches_jax(rng):
+    seen = set()
+    for x, threshold in _caps_cases(rng):
+        ok = scan.sparse_caps_ok(x, threshold)
+        assert ok == jax_scan.sparse_caps_ok(x, threshold)
+        seen.add(ok)
+    assert seen == {True, False}
+
+
+def test_filter_sparse_general_engines_on_cpu(rng):
+    """Non-int32 input takes filter_two_pass on the CPU; the Pallas stats
+    kernels are not ported and say so."""
+    x = _data(rng, 5000).astype(np.int64)
+    out, count = scan.filter_sparse(torch.from_numpy(x), 5000)
+    expected = scan.filter_oracle(x, 5000)
+    assert int(count) == len(expected)
+    assert out.dtype == torch.int64
+    assert np.array_equal(out.numpy()[: len(expected)], expected)
+    with pytest.raises(NotImplementedError, match="queue 2 #12"):
+        scan.filter_sparse(torch.from_numpy(x.astype(np.int32)),
+                           stats_pallas=True)
+
+
+def test_assume_sparse_reads_nothing_back(rng, monkeypatch):
+    """With the caps checked on the host, filter_sparse returns (out, count)
+    without reading any tensor's value on the host; without the check it
+    reads the cap predicate once."""
+    x = torch.from_numpy(_data(rng, 1 << 16, 20))
+    reads = []
+
+    def host_read(name):
+        def read(self, *args, **kwargs):
+            reads.append(name)
+            raise AssertionError(f"host read: Tensor.{name}")
+        return read
+
+    for name in ("item", "tolist", "numpy", "__bool__", "__int__",
+                 "__index__", "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, host_read(name))
+    scan.filter_sparse(x, assume_sparse=True)
+    assert reads == []
+    with pytest.raises(AssertionError, match="host read"):
+        scan.filter_sparse(x)
+    assert reads == ["__bool__"]
+
+
+def _csv_rows(path):
+    return [line.split(",") for line in open(path).read().splitlines()]
+
+
+@pytest.mark.parametrize("dwarf", ["TwoPassScan", "DPLScan"])
+def test_cli_matches_jax_package(tmp_path, dwarf):
+    args = [dwarf, "--device=cpu", "--input_size", "65536", "100003",
+            "--iterations=2"]
+    port_csv = tmp_path / "port.csv"
+    proc = subprocess.run(
+        [sys.executable, "-m", "dwarf_bench_tpu_torch", *args,
+         f"--report_path={port_csv}"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert f"[{dwarf}] 4/4 runs valid" in proc.stderr, proc.stderr
+
+    jax_csv = tmp_path / "jax.csv"
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        assert jax_main([*args, f"--report_path={jax_csv}"]) == 0
+    port, ref = _csv_rows(port_csv), _csv_rows(jax_csv)
+    assert open(port_csv).readline() == open(jax_csv).readline()
+    assert port[0] == ["device_type", "buf_size_bytes", "host_time_ms",
+                       "kernel_time_ms"]
+    assert len(port) == len(ref) == 1 + 2 * 2
+    for p, r in zip(port[1:], ref[1:]):
+        assert p[:2] == r[:2]  # device_type, buf_size_bytes
+        assert all(float(v) >= 0 for v in p[2:])
