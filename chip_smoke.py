@@ -13,12 +13,17 @@ with nvcc, then:
      agreement (every output is an integer); prints both times;
   3. drives the dwarfs through the CLI entry point with ``--device=gpu``
      (Radix 2^22, GroupBy 2^22 with G=64, GroupBy 2^20 with G=2^16,
-     JoinOmnisci 2^20, TwoPassScan, DPLScan and DPLScanCuda 2^24, three
-     iterations each) and requires every result to be valid, every kernel
-     of a dwarf's path to have launched in its run, and the CSV header to
-     be the one the JAX package writes; then calls filter_sparse where its
-     caps trip (the ``filter`` kernel's path) and, under CUDA's sync debug
-     mode, where the dwarfs call it;
+     JoinOmnisci 2^20, TwoPassScan, DPLScan and DPLScanCuda 2^24,
+     ReduceDPCPP, SlabHashBuild, SlabProbe, SlabJoin, CuckooHashBuild,
+     HashBuild, HashBuildNonBitmask and Join 2^24, NestedLoopJoin 2^14,
+     three iterations each) and requires every result to be valid, every
+     kernel of a dwarf's path to have launched in its run, and the CSV
+     header to be the one the JAX package writes; then calls filter_sparse
+     where its caps trip (the ``filter`` kernel's path) and, under CUDA's
+     sync debug mode, where the dwarfs call it; then runs the BASELINE
+     config-#4 hash extra (bench.py run_hash2p24_extra: slab build and
+     16-bit probe, cuckoo build and ``has``, 2^24 keys, 2^24 probes at
+     50 % hits) against a numpy oracle;
   4. prints one JSON line with each kernel's launches, error and times, and
      last the JSON line ``{"ok": true, "device": {...}}``.
 
@@ -61,9 +66,17 @@ KERNELS = {
                     "dwarf_bench_tpu/ops/compact_pallas.py:225"),
     "filter": ("dwarf_bench_tpu_torch/csrc/filter.cu",
                "dwarf_bench_tpu/ops/scan_pallas.py:80"),
+    "merge_bitonic": ("dwarf_bench_tpu_torch/csrc/bitonic.cu",
+                      "dwarf_bench_tpu/ops/bitonic_pallas.py:100"),
+    "merge_fill": ("dwarf_bench_tpu_torch/csrc/merge_fill.cu",
+                   "dwarf_bench_tpu/ops/merge_fill_pallas.py:52"),
+    "reduce_sum": ("dwarf_bench_tpu_torch/csrc/reduce.cu",
+                   "dwarf_bench_tpu/ops/reduce.py:36"),
 }
 
 SCAN_KERNELS = ("scan_tail_streams", "compact_mask", "emit_prefix")
+# the bulk hash probe: bitonic merge, fused fill, compaction before unsort
+MERGE_KERNELS = ("merge_bitonic", "merge_fill", "compact_mask")
 
 DWARF_RUNS = [
     # (dwarf, rows, extra CLI flags, kernels its path must launch)
@@ -76,6 +89,18 @@ DWARF_RUNS = [
     ("TwoPassScan", 1 << 24, [], SCAN_KERNELS),
     ("DPLScan", 1 << 24, [], SCAN_KERNELS),
     ("DPLScanCuda", 1 << 24, [], SCAN_KERNELS),
+    ("ReduceDPCPP", 1 << 24, [], ("reduce_sum",)),
+    # the hash family at the BASELINE config-#4 scale; the slab and cuckoo
+    # dwarfs' bulk probes (2^24 queries on the card) take the merge engine
+    ("SlabHashBuild", 1 << 24, [], MERGE_KERNELS),
+    ("SlabProbe", 1 << 24, [], MERGE_KERNELS),
+    ("SlabJoin", 1 << 24, [], MERGE_KERNELS),
+    ("CuckooHashBuild", 1 << 24, [], MERGE_KERNELS),
+    ("HashBuild", 1 << 24, [], ()),
+    ("HashBuildNonBitmask", 1 << 24, [], ()),
+    ("Join", 1 << 24, [], ()),
+    # its (n, n) compare mask takes 256 MB at 2^14
+    ("NestedLoopJoin", 1 << 14, [], ()),
 ]
 
 
@@ -111,11 +136,15 @@ def phase_kernels(dev):
     kernel's first (main-path) case."""
     from dwarf_bench_tpu_torch.common.datagen import make_random
     from dwarf_bench_tpu_torch.ops import (
+        bitonic_cuda,
         compact_cuda,
         cumsum_cuda,
         filter_cuda,
         groupby_cuda,
         hist_cuda,
+        merge_fill_cuda,
+        merge_lookup,
+        reduce_cuda,
         scan_tail_cuda,
     )
     from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
@@ -316,7 +345,97 @@ def phase_kernels(dev):
     run("emit_prefix", "L=37, capacity 40", e, ep,
         t(rng.integers(i32min, i32max, 37)), 40, view=prefix(37))
     run("emit_prefix", "L=0", e, ep, t([]), 16, view=prefix(0))
+
+    # -- the bulk hash probe's kernels at the config-#4 shapes: 2^24 table
+    #    rows and 2^24 probes merge into N = 2^25 ------------------------
+    def columns(res):
+        return [], [(c, c.numel()) for c in res]
+
+    keys, vals, probes = config4_data()
+    sk, sv = merge_lookup.sort_table(t(keys), t(vals))
+    dp = t(probes)
+    nq = probes.size
+    in16 = merge_lookup.merge_columns(sk, sv, dp, 16)
+    in32 = merge_lookup.merge_columns(sk, sv, dp, 32)
+    inm = merge_lookup.merge_columns(sk, sv, dp, membership=True)
+    mb, mbp = bitonic_cuda.merge_bitonic, bitonic_cuda.merge_bitonic_plain
+    run("merge_bitonic", "N=2^25 x 2 cols (val16)", mb, mbp, in16, 2,
+        view=columns, timed=True)
+    run("merge_bitonic", "N=2^25 x 3 cols (val32)", mb, mbp, in32, 2,
+        view=columns, timed=True)
+
+    def bitonic(n, ncols, key_hi):
+        """(key, aux) ascending then descending, ties included."""
+        k = rng.integers(0, key_hi, n, dtype=np.uint64)
+        a = rng.integers(0, 4, n, dtype=np.uint64)
+        cut = n // 3
+        o1, o2 = np.lexsort((a[:cut], k[:cut])), np.lexsort((a[cut:], k[cut:]))
+        cols = [np.concatenate([k[:cut][o1], k[cut:][o2][::-1]]),
+                np.concatenate([a[:cut][o1], a[cut:][o2][::-1]])]
+        cols += [rng.integers(0, 2**32, n, dtype=np.uint64)
+                 for _ in range(ncols - 2)]
+        return tuple(t(c.astype(np.uint32).view(np.int32)) for c in cols)
+
+    run("merge_bitonic", "N=1", mb, mbp, bitonic(1, 2, 2**32), 2,
+        view=columns)
+    run("merge_bitonic", "N=1024 < tile, ties", mb, mbp,
+        bitonic(1024, 3, 20), 2, view=columns)
+    run("merge_bitonic", "N=4096, one global stride", mb, mbp,
+        bitonic(4096, 2, 2**32), 2, view=columns)
+    run("merge_bitonic", "N=2^20 x 4 cols, keys >= 2^31, ties", mb, mbp,
+        bitonic(1 << 20, 4, 2**32), 2, view=columns)
+    run("merge_bitonic", "N=2^20 x 4 cols, num_cmp=1, ties", mb, mbp,
+        bitonic(1 << 20, 4, 1000), 1, view=columns)
+
+    mf, mfp = merge_fill_cuda.merge_fill, merge_fill_cuda.merge_fill_plain
+    m16, m32, mm = (mb(c, 2) for c in (in16, in32, inm))
+    run("merge_fill", "N=2^25 val32", mf, mfp, m32[0], m32[1], m32[2], nq,
+        False, False, view=columns, timed=True)
+    run("merge_fill", "N=2^25 val16", mf, mfp, m16[0], m16[1], None, nq,
+        True, False, view=columns, timed=True)
+    run("merge_fill", "N=2^25 membership", mf, mfp, mm[0], mm[1], None, nq,
+        False, True, view=columns, timed=True)
+    del in16, in32, inm, m16, m32, mm
+    for n_any in (1, 1025, 1_000_003):
+        cols = [t(rng.integers(i32min, i32max, n_any, endpoint=True))
+                for _ in range(3)]
+        for mode, flags in (("val32", (False, False)), ("val16", (True, False)),
+                            ("membership", (False, True))):
+            run("merge_fill", f"any length n={n_any} {mode}", mf, mfp,
+                *cols, n_any // 2, *flags, view=columns)
+
+    r, rp = reduce_cuda.reduce_sum, reduce_cuda.reduce_sum_plain
+
+    def scalar(res):
+        return [res], []
+
+    run("reduce_sum", "n=2^24 in [1, 10000]", r, rp,
+        t(make_random(1 << 24, seed=10)), view=scalar, timed=True)
+    run("reduce_sum", "n=0", r, rp, t([]), view=scalar)
+    run("reduce_sum", "n=1", r, rp, t([i32min]), view=scalar)
+    run("reduce_sum", "sums wrap past 2^31 and 2^32", r, rp,
+        t(np.full(4099, 1 << 30)), view=scalar)
+    wide = t(rng.integers(i32min, i32max, 1_000_004, endpoint=True))
+    run("reduce_sum", "n=1000003 random int32", r, rp, wide[:-1],
+        view=scalar)
+    run("reduce_sum", "misaligned start", r, rp, wide[1:], view=scalar)
     return stats
+
+
+def config4_data():
+    """BASELINE config #4 as bench.py run_hash2p24_extra sets it up, from a
+    fresh ``default_rng(0)``: 2^24 distinct keys in [1, 2^25], values in
+    [1, 10000], and 2^24 probes, the first half inserted keys, the second
+    half absent keys past 4n."""
+    n = 1 << 24
+    rng = np.random.default_rng(0)
+    keys = rng.permutation(2 * n)[:n].astype(np.uint32) + 1
+    vals = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
+    probes = np.empty(n, np.uint32)
+    probes[: n // 2] = keys[: n // 2]
+    probes[n // 2:] = rng.integers(0, n, n // 2).astype(np.uint32) \
+        + np.uint32(4 * n)
+    return keys, vals, probes
 
 
 def phase_dwarfs(device_flag):
@@ -357,6 +476,7 @@ def phase_dwarfs(device_flag):
                 flush=True,
             )
         scan_ops(torch.device("cuda:0"))
+        hash_ops(torch.device("cuda:0"))
         launches = dict(_build.LAUNCHES)
     print(f"launches in the dwarf phase: {launches}", flush=True)
     return launches
@@ -407,6 +527,75 @@ def scan_ops(dev):
           flush=True)
 
 
+def hash_ops(dev):
+    """The BASELINE config-#4 extra (bench.py:301-372) on the card: a slab
+    build over 2^24 distinct keys and ``find(val_bits=16)`` over 2^24
+    probes at 50 % hits (the only caller of the val16 fill), then a cuckoo
+    build at 4n slots with bench.py's seeds and re-seed loop, and ``has``.
+    Every answer is held to a numpy oracle (binary search in the sorted
+    keys); the probes must launch the merge path's kernels."""
+    from dwarf_bench_tpu_torch.ops import _build, bucket_hash, cuckoo
+    from dwarf_bench_tpu_torch.utils.timing import kernel_time, sync
+
+    keys, vals, probes = config4_data()
+    n = keys.size
+    order = np.argsort(keys)
+    ks, vs = keys[order], vals[order]
+    pos = np.minimum(np.searchsorted(ks, probes), n - 1)
+    exp_found = ks[pos] == probes
+    exp_val = np.where(exp_found, vs[pos], 0).astype(np.uint32)
+
+    def put(a):
+        return torch.from_numpy(a.view(np.int32)).to(dev)
+
+    dk, dv, dp = put(keys), put(vals), put(probes)
+    nb = bucket_hash.calculate_buckets_count(n)
+    sync(bucket_hash.build(dk, dv, nb))  # warm
+    t0 = time.perf_counter()
+    tbl = sync(bucket_hash.build(dk, dv, nb))
+    t_build = time.perf_counter() - t0
+    before = dict(_build.LAUNCHES)
+    found, val = sync(bucket_hash.find(tbl, dp, val_bits=16))
+    for k in MERGE_KERNELS:
+        check(_build.LAUNCHES[k] > before[k],
+              f"slab find 2^24: kernel {k} was not launched")
+    check(np.array_equal(found.cpu().numpy(), exp_found)
+          and np.array_equal(val.cpu().numpy().view(np.uint32), exp_val),
+          "slab find(val_bits=16) 2^24: differs from the numpy oracle")
+    t_probe = kernel_time(lambda tb, q: bucket_hash.find(tb, q, val_bits=16),
+                          tbl, dp, k=5)
+    print(f"hash_ops slab 2^24: valid build_ms={t_build * 1e3!r} "
+          f"probe_hit50_ms={t_probe * 1e3!r} "
+          f"probe_rows_per_s={n / t_probe!r} "
+          f"overflow={int(tbl.overflow_count)}", flush=True)
+    del tbl, found, val
+
+    t0 = time.perf_counter()
+    for attempt in range(5):  # bench.py's host rebuild loop
+        seeds = (0x9E3779B9 + attempt, 0x85EBCA6B + 2 * attempt)
+        ct = sync(cuckoo.build(dk, 4 * n, *seeds, 256))
+        if ct.success:
+            break
+    t_cuckoo = time.perf_counter() - t0
+    check(ct.success, f"cuckoo build 2^24: no convergence in "
+                      f"{attempt + 1} attempts")
+    t0 = time.perf_counter()
+    sync(cuckoo.build(dk, 4 * n, *seeds, 256))
+    t_warm = time.perf_counter() - t0
+    before = dict(_build.LAUNCHES)
+    found = sync(cuckoo.has(ct, dp))
+    for k in MERGE_KERNELS:
+        check(_build.LAUNCHES[k] > before[k],
+              f"cuckoo has 2^24: kernel {k} was not launched")
+    check(np.array_equal(found.cpu().numpy(), exp_found),
+          "cuckoo has 2^24: differs from the numpy oracle")
+    t_has = kernel_time(cuckoo.has, ct, dp, k=5)
+    print(f"hash_ops cuckoo 2^24: valid build_ms={t_cuckoo * 1e3!r} "
+          f"warm_build_ms={t_warm * 1e3!r} rounds={ct.rounds} "
+          f"attempts={attempt + 1} has_hit50_ms={t_has * 1e3!r} "
+          f"has_rows_per_s={n / t_has!r}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -422,8 +611,13 @@ def main() -> int:
     print(f"kernel library ready in {time.perf_counter() - t0!r} s "
           f"(nvcc build {_build.build_seconds!r} s)", flush=True)
 
+    t1 = time.perf_counter()
     stats = phase_kernels(torch.device("cuda:0"))
+    t2 = time.perf_counter()
     launches = phase_dwarfs("gpu")
+    print(f"phase seconds: kernels {t2 - t1!r}, dwarfs and ops "
+          f"{time.perf_counter() - t2!r}, whole script "
+          f"{time.perf_counter() - t0!r}", flush=True)
     for name in KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched by the dwarfs")

@@ -9,7 +9,15 @@ from __future__ import annotations
 
 from ..common.registry import Registry
 from .groupby import GroupBy, GroupByCuda
-from .join import JoinOmnisci, JoinOmnisciCuda
+from .hash_build import (
+    CuckooHashBuild,
+    HashBuild,
+    HashBuildNonBitmask,
+    SlabHashBuild,
+)
+from .join import Join, JoinOmnisci, JoinOmnisciCuda, NestedLoopJoin, SlabJoin
+from .probe import SlabProbe
+from .reduce import ReduceDPCPP
 from .scan import DPLScan, DPLScanCuda, TwoPassScan
 from .sort import Radix, RadixCuda, TBBSort
 
@@ -21,8 +29,18 @@ _ALL_DWARFS = (
     # DPCPP_ENABLED gate (register_dwarfs.cpp:30-40)
     DPLScan,
     Radix,
+    HashBuild,
+    NestedLoopJoin,
     GroupBy,
+    Join,
+    HashBuildNonBitmask,
     JoinOmnisci,
+    # DPCPP+EXPERIMENTAL gate (register_dwarfs.cpp:41-46)
+    ReduceDPCPP,
+    CuckooHashBuild,
+    SlabHashBuild,
+    SlabJoin,
+    SlabProbe,
     # CUDA_ENABLED gate (register_dwarfs.cpp:48-53)
     DPLScanCuda,
     RadixCuda,

@@ -3,9 +3,11 @@
 library has not been built (``make -C native``) or does not load on this
 host: functional parity, just slower at large sizes.
 
-Only the oracle the ported dwarfs use is bound. The CSR-join validation of
-the JAX package (a per-row Python loop) is replaced by a vectorized exact
-check in ``dwarfs/join.py``.
+Only the group-by oracle is bound. The join oracles (``join_count``,
+``seq_join_sorted``) are vectorized numpy, which needs no build and checks
+2^24-row joins in seconds; the CSR-join validation of the JAX package (a
+per-row Python loop) is replaced by a vectorized exact check in
+``dwarfs/join.py``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,23 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def _p(a: np.ndarray, ct):
     return a.ctypes.data_as(ctypes.POINTER(ct))
+
+
+def join_count(a_keys, b_keys) -> int:
+    """Total matching (a, b) pairs: for each key, its count in A times its
+    count in B."""
+    a = np.ascontiguousarray(a_keys, np.uint32)
+    bs = np.sort(np.ascontiguousarray(b_keys, np.uint32))
+    cnt = np.searchsorted(bs, a, side="right") - np.searchsorted(bs, a)
+    return int(cnt.sum())
+
+
+def seq_join_sorted(ak, av, bk, bv) -> np.ndarray:
+    """All (key, a_val, b_val) triples, lexicographically sorted, as an
+    (n, 3) uint32 array (the seq_join oracle, vectorized)."""
+    from .ops.join import seq_join_oracle
+
+    return seq_join_oracle(ak, av, bk, bv).astype(np.uint32)
 
 
 def groupby_sum(keys, vals, groups: int) -> np.ndarray:

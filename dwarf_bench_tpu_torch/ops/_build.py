@@ -64,6 +64,13 @@ _SIGNATURES = {
         [_P, _P, _I64, _I32, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
         ctypes.c_int,
     ),
+    "dbt_reduce_sum": ([_P, _I64, _P, _P], ctypes.c_int),
+    "dbt_merge_bitonic": ([_P] * 8 + [_I32, _I64, _I32, _P], ctypes.c_int),
+    "dbt_merge_fill": (
+        [_P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P],
+        ctypes.c_int,
+    ),
+    "dbt_merge_fill_scratch": ([_I64], _I64),
     "dbt_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -76,6 +83,9 @@ LAUNCHES: Dict[str, int] = {
     "compact_mask": 0,
     "emit_prefix": 0,
     "filter": 0,
+    "merge_bitonic": 0,
+    "merge_fill": 0,
+    "reduce_sum": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

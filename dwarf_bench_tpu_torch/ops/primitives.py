@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 _U32 = 1 << 32
+_I32_MIN = -(1 << 31)
 
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -61,12 +62,55 @@ def compact(values: torch.Tensor, mask: torch.Tensor, capacity=None,
     return out, count
 
 
-def sort_by_key(keys: torch.Tensor, *values: torch.Tensor, stable: bool = True):
+def bias_u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns XOR 0x80000000: signed order of the result is the
+    unsigned order of ``x`` (its own inverse)."""
+    return x ^ _I32_MIN
+
+
+def sort_by_key(keys: torch.Tensor, *values: torch.Tensor, stable: bool = True,
+                unsigned: bool = False):
     """Sort a key column with payload columns (the JAX package's
-    ``lax.sort`` with ``num_keys=1``). Keys compare as signed int32; a caller
-    with uint32 bit patterns at or above 2^31 biases them first. Returns
-    (sorted_keys, *sorted_values)."""
-    sk, order = torch.sort(keys, stable=stable)
+    ``lax.sort`` with ``num_keys=1``). Keys compare as signed int32, or with
+    ``unsigned=True`` as the uint32 values of their bit patterns (the JAX
+    package's order for uint32 columns). Returns (sorted_keys,
+    *sorted_values)."""
+    if unsigned:
+        sk, order = torch.sort(bias_u32(keys), stable=stable)
+        sk = bias_u32(sk)
+    else:
+        sk, order = torch.sort(keys, stable=stable)
     if not values:
         return sk
     return (sk, *(v[order] for v in values))
+
+
+def segment_ids_from_sorted(sorted_keys: torch.Tensor) -> torch.Tensor:
+    """For a sorted key column, the dense int32 segment id of each row
+    (0-based, increasing by 1 at every key change)."""
+    n = sorted_keys.shape[0]
+    change = torch.zeros(n, dtype=torch.int32, device=sorted_keys.device)
+    if n > 1:
+        change[1:] = (sorted_keys[1:] != sorted_keys[:-1]).to(torch.int32)
+    return torch.cumsum(change, 0, dtype=torch.int32)
+
+
+def rank_in_segment(segment_ids: torch.Tensor) -> torch.Tensor:
+    """int32 rank of each row within its (contiguous) segment: 0, 1, 2, ..."""
+    n = segment_ids.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=segment_ids.device)
+    is_start = torch.ones(n, dtype=torch.bool, device=segment_ids.device)
+    if n > 1:
+        is_start[1:] = segment_ids[1:] != segment_ids[:-1]
+    start_idx = cummax(torch.where(is_start, idx, 0))
+    return idx - start_idx
+
+
+def cummax(x: torch.Tensor, unsigned: bool = False) -> torch.Tensor:
+    """Inclusive running max (``lax.cummax``). int32 columns compare as
+    signed, or with ``unsigned=True`` as uint32 bit patterns."""
+    if x.shape[0] == 0:
+        return x.clone()
+    if unsigned:
+        return bias_u32(torch.cummax(bias_u32(x), 0).values)
+    return torch.cummax(x, 0).values

@@ -15,11 +15,17 @@ import torch
 from dwarf_bench_tpu_torch import cli, populate_registry
 from dwarf_bench_tpu_torch.ops import (
     _build,
+    bitonic_cuda,
+    bucket_hash,
     compact_cuda,
+    cuckoo,
     cumsum_cuda,
     filter_cuda,
     groupby_cuda,
     hist_cuda,
+    merge_fill_cuda,
+    merge_lookup,
+    reduce_cuda,
     scan,
     scan_tail_cuda,
 )
@@ -174,13 +180,136 @@ def test_wrappers_count_their_launches(cuda):
     compact_cuda.compact_mask(k > 0, (k,))
     compact_cuda.emit_prefix(k, 10)
     scan_tail_cuda.scan_tail_streams(k, k, 5, 4, 4)
+    k8 = torch.zeros(8, dtype=torch.int32, device=cuda)
+    bitonic_cuda.merge_bitonic((k8, k8))
+    merge_fill_cuda.merge_fill(k, k, k, 4)
+    reduce_cuda.reduce_sum(k)
     hist_cuda.histogram_plain(k, 8)
     filter_cuda.filter_plain(k, 5)
+    bitonic_cuda.merge_bitonic_plain((k8, k8))
+    merge_fill_cuda.merge_fill_plain(k, k, k, 4)
+    reduce_cuda.reduce_sum_plain(k)
     assert {n: _build.LAUNCHES[n] - before[n] for n in before} == {
         "histogram": 1, "cumsum": 1, "groupby_small": 1,
         "weighted_histogram": 1, "filter": 1, "compact_mask": 1,
-        "emit_prefix": 1, "scan_tail_streams": 1,
+        "emit_prefix": 1, "scan_tail_streams": 1, "merge_bitonic": 1,
+        "merge_fill": 1, "reduce_sum": 1,
     }
+
+
+def _bitonic_cols(rng, n, ncols, key_hi):
+    """Ascending prefix, descending suffix in (key, aux), ties included."""
+    k = rng.integers(0, key_hi, n, dtype=np.uint64)
+    a = rng.integers(0, 4, n, dtype=np.uint64)
+    cut = int(n * 0.4)
+    o1 = np.lexsort((a[:cut], k[:cut]))
+    o2 = np.lexsort((a[cut:], k[cut:]))[::-1]
+    cols = [np.concatenate([k[:cut][o1], k[cut:][o2]]),
+            np.concatenate([a[:cut][o1], a[cut:][o2]])]
+    cols += [rng.integers(0, 2**32, n, dtype=np.uint64)
+             for _ in range(ncols - 2)]
+    return cols
+
+
+@pytest.mark.parametrize("num_cmp", [1, 2])
+@pytest.mark.parametrize("ncols", [2, 3, 4])
+@pytest.mark.parametrize("n,key_hi", [(1, 2**32), (2, 3), (1024, 50),
+                                      (2048, 2**32), (4096, 7),
+                                      (1 << 20, 2**32), (1 << 21, 1000)])
+def test_merge_bitonic(cuda, rng, n, key_hi, ncols, num_cmp):
+    cols = tuple(_t(c.astype(np.uint32).view(np.int32), cuda)
+                 for c in _bitonic_cols(rng, n, ncols, key_hi))
+    got = bitonic_cuda.merge_bitonic(cols, num_cmp)
+    exp = bitonic_cuda.merge_bitonic_plain(cols, num_cmp)
+    assert all(torch.equal(g, e) for g, e in zip(got, exp))
+
+
+def test_merge_bitonic_any_input(cuda, rng):
+    cols = tuple(_t(rng.integers(-(2**31), 2**31, 1 << 16), cuda)
+                 for _ in range(3))
+    got = bitonic_cuda.merge_bitonic(cols)
+    exp = bitonic_cuda.merge_bitonic_plain(cols)
+    assert all(torch.equal(g, e) for g, e in zip(got, exp))
+
+
+@pytest.mark.parametrize("mode", ["val32", "val16", "membership"])
+@pytest.mark.parametrize("n", [1, 1023, 1025, 1 << 15, 1_000_003])
+def test_merge_fill(cuda, rng, n, mode):
+    sk = _t(rng.integers(-(2**31), 2**31, n), cuda)
+    sk[: min(n, 2)] = -1  # EMPTY rows
+    sa = _t(rng.integers(-(2**31), 2**31, n), cuda)  # bit 31: query rows
+    dv = _t(rng.integers(-(2**31), 2**31, n), cuda)
+    kw = dict(val16=mode == "val16", membership=mode == "membership")
+    for nq in (0, n // 2, 2**30 - 1):
+        got = merge_fill_cuda.merge_fill(sk, sa, dv, nq, **kw)
+        exp = merge_fill_cuda.merge_fill_plain(sk, sa, dv, nq, **kw)
+        assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 4097, 1_000_003, 1 << 24])
+def test_reduce_sum(cuda, rng, n):
+    x = _t(rng.integers(-(2**31), 2**31, n + 1), cuda)
+    for v in (x[:n], x[1:]):  # aligned and misaligned starts
+        got = reduce_cuda.reduce_sum(v)
+        assert got.shape == () and got.is_cuda
+        assert int(got) == int(reduce_cuda.reduce_sum_plain(v.cpu()))
+
+
+@pytest.mark.parametrize("mode", ["val16", "val32", "membership"])
+@pytest.mark.parametrize("nt,nq", [(1, 7), (5000, 70_000), (1 << 20, 1 << 20)])
+def test_merge_lookup_bitonic_on_cuda(cuda, rng, mode, nt, nq):
+    keys = (rng.permutation(4 * nt)[:nt] + 1).astype(np.uint32)
+    hi = 1 << 16 if mode == "val16" else 1 << 32
+    vals = rng.integers(0, hi, nt, dtype=np.uint64).astype(np.uint32)
+    q = np.concatenate([rng.permutation(keys)[: nq // 2],
+                        rng.integers(0, 2**32, nq - nq // 2,
+                                     dtype=np.uint64).astype(np.uint32)])
+    rng.shuffle(q)
+    kw = dict(val_bits=16 if mode == "val16" else 32,
+              membership=mode == "membership")
+    sk, sv = merge_lookup.sort_table(_t(keys.view(np.int32), cuda),
+                                     _t(vals.view(np.int32), cuda))
+    exp = merge_lookup.merge_lookup_bitonic(sk.cpu(), sv.cpu(),
+                                            _t(q.view(np.int32), "cpu"), **kw)
+    for compact_first in (None, False):
+        before = dict(_build.LAUNCHES)
+        got = merge_lookup.merge_lookup_bitonic(
+            sk, sv, _t(q.view(np.int32), cuda), compact_first=compact_first,
+            **kw)
+        assert torch.equal(got[0].cpu(), exp[0])
+        assert torch.equal(got[1].cpu(), exp[1])
+        assert _build.LAUNCHES["merge_bitonic"] > before["merge_bitonic"]
+        assert _build.LAUNCHES["merge_fill"] > before["merge_fill"]
+
+
+def test_hash_tables_on_cuda_match_cpu(cuda, rng):
+    """bucket_hash and cuckoo give the CPU build's answers on the card; the
+    bulk probes take the merge engine there."""
+    n = 1 << 17
+    keys = (rng.permutation(2 * n)[:n] + 1).astype(np.uint32)
+    vals = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
+    probes = np.concatenate([keys[: n // 2],
+                             rng.integers(0, n, n - n // 2).astype(np.uint32)
+                             + np.uint32(4 * n)])
+    k, v, p = (_t(a.view(np.int32), cuda) for a in (keys, vals, probes))
+    nb = bucket_hash.calculate_buckets_count(n)
+    gt = bucket_hash.build(k, v, nb)
+    ct = bucket_hash.build(k.cpu(), v.cpu(), nb)
+    assert torch.equal(gt.keys.cpu(), ct.keys)
+    for val_bits in (16, 32):
+        found, val = bucket_hash.find(gt, p, val_bits=val_bits)
+        efound, eval_ = bucket_hash.find(ct, p.cpu(), engine="tile")
+        assert torch.equal(found.cpu(), efound)
+        assert torch.equal(val.cpu(), eval_)
+    g = cuckoo.build(k, 4 * n, 0x9E3779B9, 0x85EBCA6B, 256, values=v)
+    c = cuckoo.build(k.cpu(), 4 * n, 0x9E3779B9, 0x85EBCA6B, 256,
+                     values=v.cpu())
+    assert (g.success, g.rounds) == (c.success, c.rounds) and g.success
+    assert torch.equal(g.keys.cpu(), c.keys)
+    assert torch.equal(cuckoo.has(g, p).cpu(), cuckoo.has(c, p.cpu()))
+    got, exp = cuckoo.at(g, p), cuckoo.at(c, p.cpu())
+    assert torch.equal(got[0].cpu(), exp[0])
+    assert torch.equal(got[1].cpu(), exp[1])
 
 
 def test_wrapper_rejects_int64_on_gpu(cuda):
@@ -195,6 +324,7 @@ def test_wrapper_rejects_int64_on_gpu(cuda):
 
 
 SCAN_KERNELS = ("scan_tail_streams", "compact_mask", "emit_prefix")
+MERGE_KERNELS = ("merge_bitonic", "merge_fill", "compact_mask")
 
 
 @pytest.mark.parametrize("dwarf,extra,kernels", [
@@ -205,10 +335,19 @@ SCAN_KERNELS = ("scan_tail_streams", "compact_mask", "emit_prefix")
     ("TwoPassScan", ["--device=gpu"], SCAN_KERNELS),
     ("DPLScan", ["--device=gpu"], SCAN_KERNELS),
     ("DPLScanCuda", [], SCAN_KERNELS),
+    ("ReduceDPCPP", ["--device=gpu"], ("reduce_sum",)),
+    ("SlabHashBuild", ["--device=gpu"], MERGE_KERNELS),
+    ("SlabProbe", ["--device=gpu"], MERGE_KERNELS),
+    ("SlabJoin", ["--device=gpu"], MERGE_KERNELS),
+    ("CuckooHashBuild", ["--device=gpu"], MERGE_KERNELS),
+    ("HashBuild", ["--device=gpu"], ()),
+    ("HashBuildNonBitmask", ["--device=gpu"], ()),
+    ("Join", ["--device=gpu"], ()),
+    ("NestedLoopJoin", ["--device=gpu"], ()),
 ])
 def test_dwarfs_run_through_the_kernels(cuda, tmp_path, dwarf, extra, kernels):
     before = dict(_build.LAUNCHES)
-    size = "1048576" if kernels is SCAN_KERNELS else "65536"
+    size = "1048576" if kernels in (SCAN_KERNELS, MERGE_KERNELS) else "65536"
     rc = cli.main([dwarf, "--input_size", "1000", size, "--iterations=2",
                    f"--report_path={tmp_path / 'r.csv'}", *extra])
     assert rc == 0

@@ -1,0 +1,188 @@
+"""The bulk probe engine against the JAX package, exact: the bitonic merge
+twin (ops/bitonic.py), the fill twin against ``merge_fill_pallas`` in
+interpret mode, and ``merge_lookup`` / ``merge_lookup_bitonic`` /
+``sort_table`` (ops/merge_lookup.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dwarf_bench_tpu.ops import merge_lookup as jml
+from dwarf_bench_tpu.ops.bitonic import merge_bitonic as jax_merge_bitonic
+from dwarf_bench_tpu.ops.merge_fill_pallas import merge_fill_pallas
+from dwarf_bench_tpu_torch.ops import bitonic_cuda, merge_fill_cuda
+from dwarf_bench_tpu_torch.ops import merge_lookup as tml
+
+TAG = np.uint32(0x80000000)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.uint32).view(np.int32).copy())
+
+
+def _u32(x):
+    return x.numpy().view(np.uint32)
+
+
+def _bitonic_input(rng, n, ncols, key_hi, split=0.37):
+    """A bitonic sequence under the (key, aux) order: ascending prefix,
+    descending suffix, with ties in key (and in aux when aux_hi is small)."""
+    keys = rng.integers(0, key_hi, n, dtype=np.uint64).astype(np.uint32)
+    aux = rng.integers(0, 4, n).astype(np.uint32)  # ties in (key, aux) too
+    a = int(n * split)
+    o1 = np.lexsort((aux[:a], keys[:a]))
+    o2 = np.lexsort((aux[a:], keys[a:]))[::-1]
+    k = np.concatenate([keys[:a][o1], keys[a:][o2]])
+    ax = np.concatenate([aux[:a][o1], aux[a:][o2]])
+    pays = [rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+            for _ in range(2)]
+    return (k, ax, *pays)[:ncols]
+
+
+@pytest.mark.parametrize("n,key_hi,ncols,num_cmp", [
+    (1, 2**32, 2, 2), (2, 3, 2, 1), (8, 2**32, 4, 2), (1 << 10, 50, 3, 2),
+    (1 << 10, 50, 4, 1), (1 << 12, 7, 2, 2), (1 << 16, 2**32, 2, 2),
+    (1 << 16, 50, 3, 2), (1 << 16, 2**32, 4, 1),
+])
+def test_bitonic_twin_matches_jax(rng, n, key_hi, ncols, num_cmp):
+    cols = _bitonic_input(rng, n, ncols, key_hi)
+    ref = jax_merge_bitonic(tuple(jnp.asarray(c) for c in cols),
+                            num_cmp=num_cmp)
+    got = bitonic_cuda.merge_bitonic(tuple(_t(c) for c in cols),
+                                     num_cmp=num_cmp)
+    for g, r in zip(got, ref):
+        assert np.array_equal(_u32(g), np.asarray(r))
+
+
+def test_bitonic_same_network_on_any_input(rng):
+    """The same pairs and tie rule give JAX's output even on input that is
+    not bitonic (the network is the contract, not just the sorted order)."""
+    cols = [rng.integers(0, 5, 256).astype(np.uint32) for _ in range(3)]
+    ref = jax_merge_bitonic(tuple(jnp.asarray(c) for c in cols))
+    got = bitonic_cuda.merge_bitonic(tuple(_t(c) for c in cols))
+    for g, r in zip(got, ref):
+        assert np.array_equal(_u32(g), np.asarray(r))
+
+
+def test_bitonic_rejects_bad_shapes():
+    with pytest.raises(ValueError):
+        bitonic_cuda.merge_bitonic((_t([1, 2, 3]), _t([1, 2, 3])))
+    with pytest.raises(ValueError):
+        bitonic_cuda.merge_bitonic((_t([1, 2]),))
+    with pytest.raises(ValueError):
+        bitonic_cuda.merge_bitonic((_t([1, 2]),) * 2, num_cmp=3)
+
+
+@pytest.fixture(scope="module")
+def merged_2p15():
+    """The merged order of tests/test_bitonic_pallas.py's fill test:
+    2^14 table rows, 2^14 queries (half hits, key 0 first)."""
+    rng = np.random.default_rng(777)
+    nt = nq = 1 << 14
+    keys = np.sort(rng.choice(1 << 20, nt, replace=False).astype(np.uint32))
+    keys[-3:] = [2**31, 2**32 - 2, 2**32 - 1]  # high keys and an EMPTY row
+    vals = rng.integers(0, 1 << 32, nt, dtype=np.uint64).astype(np.uint32)
+    q = np.concatenate([
+        rng.permutation(keys[:-1])[: nq // 2],
+        rng.integers(1 << 21, 1 << 22, nq - nq // 2).astype(np.uint32),
+    ])
+    q[:3] = [0, 2**32 - 1, 2**32 - 2]
+    rng.shuffle(q)
+    qi = np.arange(nq, dtype=np.uint32)
+    order = np.lexsort((qi, q))
+    dv = vals - np.roll(vals, 1)
+    dv[0] = vals[0]
+    ka = np.concatenate([keys, q[order][::-1]])
+    aa = np.concatenate([dv & 0xFFFF, (TAG | qi[order])[::-1]])
+    dvc = np.concatenate([dv, np.zeros(nq, np.uint32)])
+    sk, sa, sdv = (np.asarray(x) for x in jax_merge_bitonic(
+        (jnp.asarray(ka), jnp.asarray(aa), jnp.asarray(dvc))))
+    return sk, sa, sdv, nq
+
+
+@pytest.mark.parametrize("val16,memb", [(True, False), (False, False),
+                                        (False, True)])
+def test_fill_twin_matches_pallas(merged_2p15, val16, memb):
+    sk, sa, sdv, nq = merged_2p15
+    rdest, rval = merge_fill_pallas(
+        jnp.asarray(sk), jnp.asarray(sa), jnp.asarray(sdv), nq,
+        val16=val16, membership=memb, interpret=True)
+    dest, val = merge_fill_cuda.merge_fill(
+        _t(sk), _t(sa), _t(sdv), nq, val16=val16, membership=memb)
+    assert np.array_equal(_u32(dest), np.asarray(rdest))
+    assert np.array_equal(_u32(val), np.asarray(rval))
+    # the last query rows of the order (nq cut) become non-real
+    small = merge_fill_cuda.merge_fill(_t(sk), _t(sa), _t(sdv), 5,
+                                       val16=val16, membership=memb)[0]
+    assert int((small != -1).sum()) == 5
+
+
+def test_fill_any_length():
+    """The CUDA fill takes any N: the twin on an odd length equals the
+    contract's scalar reference."""
+    sk = np.array([3, 3, 5, 7, 7, 9, 0xFFFFFFFF], np.uint32)
+    sa = np.array([10, TAG | 0, 20, TAG | 1, TAG | 2, 0, TAG | 3], np.uint32)
+    dest, val = merge_fill_cuda.merge_fill(_t(sk), _t(sa), None, 4,
+                                           val16=True)
+    assert list(_u32(dest)) == [0xFFFFFFFF, 1, 0xFFFFFFFF, 2, 4, 0xFFFFFFFF,
+                                6]
+    assert list(_u32(val)) == [0, 10, 0, 0, 0, 0, 0]
+    with pytest.raises(ValueError):
+        merge_fill_cuda.merge_fill(_t(sk), _t(sa), None, 4)  # no dv
+
+
+def _queries(rng, keys, nq):
+    q = np.concatenate([
+        rng.permutation(keys)[: nq // 2],
+        rng.integers(1 << 21, 1 << 22, nq - nq // 2).astype(np.uint32),
+    ])
+    q[: min(nq, 4)] = [0, 0xFFFFFFFF, 0, 5][: min(nq, 4)]  # edges, duplicates
+    rng.shuffle(q)
+    return q
+
+
+@pytest.mark.parametrize("nt,nq", [(1, 7), (1000, 3000), (5000, 5000)])
+def test_merge_lookup_legacy(rng, nt, nq):
+    keys = rng.choice(1 << 20, nt, replace=False).astype(np.uint32)
+    keys[0] = 0
+    vals = rng.integers(0, 2**32, nt, dtype=np.uint64).astype(np.uint32)
+    q = _queries(rng, keys, nq)
+    jsk, jsv = jml.sort_table(jnp.asarray(keys), jnp.asarray(vals))
+    sk, sv = tml.sort_table(_t(keys), _t(vals))
+    assert np.array_equal(_u32(sk), np.asarray(jsk))
+    assert np.array_equal(_u32(sv), np.asarray(jsv))
+    rf, rv = jml.merge_lookup(jsk, jsv, jnp.asarray(q))
+    gf, gv = tml.merge_lookup(sk, sv, _t(q))
+    assert np.array_equal(gf.numpy(), np.asarray(rf))
+    assert np.array_equal(_u32(gv), np.asarray(rv))
+
+
+@pytest.mark.parametrize("mode", ["val16", "val32", "membership"])
+@pytest.mark.parametrize("compact_first", [False, True])
+def test_merge_lookup_bitonic(rng, mode, compact_first):
+    nt, nq = 3000, 5000
+    keys = rng.choice(1 << 20, nt, replace=False).astype(np.uint32)
+    keys[:2] = [0, 0xFFFFFFFF]  # key 0, and EMPTY (unfindable by contract)
+    hi = 1 << 16 if mode == "val16" else 1 << 32
+    vals = rng.integers(0, hi, nt, dtype=np.uint64).astype(np.uint32)
+    q = _queries(rng, keys, nq)
+    kw = dict(val_bits=16 if mode == "val16" else 32,
+              membership=mode == "membership", compact_first=compact_first)
+    jsk, jsv = jml.sort_table(jnp.asarray(keys), jnp.asarray(vals))
+    rf, rv = jml.merge_lookup_bitonic(jsk, jsv, jnp.asarray(q), **kw)
+    sk, sv = tml.sort_table(_t(keys), _t(vals))
+    gf, gv = tml.merge_lookup_bitonic(sk, sv, _t(q), **kw)
+    assert np.array_equal(gf.numpy(), np.asarray(rf))
+    assert np.array_equal(_u32(gv), np.asarray(rv))
+    d = dict(zip(keys.tolist(), vals.tolist()))
+    d.pop(0xFFFFFFFF)
+    assert np.array_equal(gf.numpy(), np.array([int(k) in d for k in q]))
+
+
+def test_merge_lookup_bitonic_empty_and_single():
+    sk, sv = tml.sort_table(_t([5]), _t([9]))
+    f, v = tml.merge_lookup_bitonic(sk, sv, _t([]))
+    assert f.shape == (0,) and v.shape == (0,)
+    f, v = tml.merge_lookup_bitonic(sk, sv, _t([5]))
+    assert f.tolist() == [True] and v.tolist() == [9]

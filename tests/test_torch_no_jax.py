@@ -38,6 +38,10 @@ def test_import_loads_no_jax():
         "import dwarf_bench_tpu_torch, dwarf_bench_tpu_torch.cli\n"
         "import dwarf_bench_tpu_torch.ops.csr_join, chip_smoke\n"
         "import dwarf_bench_tpu_torch.ops.scan, dwarf_bench_tpu_torch.dwarfs.scan\n"
+        "import dwarf_bench_tpu_torch.ops.cuckoo, dwarf_bench_tpu_torch.ops.join\n"
+        "import dwarf_bench_tpu_torch.ops.bucket_hash, dwarf_bench_tpu_torch.ops.reduce\n"
+        "import dwarf_bench_tpu_torch.dwarfs.hash_build, dwarf_bench_tpu_torch.dwarfs.probe\n"
+        "import dwarf_bench_tpu_torch.dwarfs.reduce, dwarf_bench_tpu_torch.native\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dwarf_bench_tpu'))\n"
         "assert not bad, bad\n"
