@@ -8,9 +8,13 @@ with nvcc, then:
 
   1. prints the card (``nvidia-smi`` name and power limit), the torch, CUDA
      and nvcc versions, and the kernel build time;
-  2. runs each kernel against its plain PyTorch twin on the card, at the
-     shapes the dwarfs give it and on edge cases, and requires exact
-     agreement (every output is an integer); prints both times;
+  2. runs each kernel, under each JAX name it serves, against its plain
+     PyTorch twin on the card, at the shapes the dwarfs and the library
+     paths give it and on edge cases, and requires exact agreement (every
+     output is an integer); prints both times, the time of one PyTorch
+     library call of the same function where there is one, and the bound
+     (the least time the card could take: bytes over 3.35 TB/s or
+     operations over 67 TOP/s, whichever is larger);
   3. drives the dwarfs through the CLI entry point with ``--device=gpu``
      (Radix 2^22, GroupBy 2^22 with G=64, GroupBy 2^20 with G=2^16,
      JoinOmnisci 2^20, TwoPassScan, DPLScan and DPLScanCuda 2^24,
@@ -24,7 +28,15 @@ with nvcc, then:
      config-#4 hash extra (bench.py run_hash2p24_extra: slab build and
      16-bit probe, cuckoo build and ``has``, 2^24 keys, 2^24 probes at
      50 % hits) against a numpy oracle;
-  4. prints one JSON line with each kernel's launches, error and times, and
+  4. drives this slice's library paths with the launch counts set to 0:
+     filter_sparse(stats_pallas=True and False) at 2^24 (x < 5) and 2^20
+     (x < 5000, caps trip) against filter_oracle, timed beside
+     stats_pallas=None, and stats_pallas=True with assume_sparse=True under
+     the sync debug mode; the general CSR join at 2^20 (build + probe_merge,
+     probe_merge_bitonic, probe, probe_sorted) against the exact
+     validate_csr_join; and every opt-in JAX name once at its main-path
+     shape, against its plain version;
+  5. prints one JSON line with each kernel's launches, error and times, and
      last the JSON line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. It exits non-zero at once
@@ -72,7 +84,44 @@ KERNELS = {
                    "dwarf_bench_tpu/ops/merge_fill_pallas.py:52"),
     "reduce_sum": ("dwarf_bench_tpu_torch/csrc/reduce.cu",
                    "dwarf_bench_tpu/ops/reduce.py:36"),
+    # the JAX names this slice serves
+    "chunk_stats_pallas": ("dwarf_bench_tpu_torch/csrc/chunk_stats.cu",
+                           "dwarf_bench_tpu/ops/chunk_stats_pallas.py:268"),
+    "chunk_stats_roll_pallas": (
+        "dwarf_bench_tpu_torch/csrc/chunk_stats.cu",
+        "dwarf_bench_tpu/ops/chunk_stats_pallas.py:54"),
+    "chunk_stats_fused": ("dwarf_bench_tpu_torch/csrc/chunk_stats.cu",
+                          "dwarf_bench_tpu/ops/chunk_stats_pallas.py:138"),
+    "scan_tail_compact": ("dwarf_bench_tpu_torch/csrc/scan_tail.cu",
+                          "dwarf_bench_tpu/ops/scan_tail_pallas.py:266"),
+    "probe_dense_rel_pallas": ("dwarf_bench_tpu_torch/csrc/probe_dense.cu",
+                               "dwarf_bench_tpu/ops/probe_pallas.py:174"),
+    "probe_dense_cat_pallas": ("dwarf_bench_tpu_torch/csrc/probe_dense.cu",
+                               "dwarf_bench_tpu/ops/probe_pallas.py:43"),
+    "histogram_16k_pallas": ("dwarf_bench_tpu_torch/csrc/hist.cu",
+                             "dwarf_bench_tpu/ops/hist_pallas.py:40"),
+    "weighted_histogram_pallas": ("dwarf_bench_tpu_torch/csrc/hist.cu",
+                                  "dwarf_bench_tpu/ops/hist_pallas.py:279"),
+    "weighted_histogram_16k_pallas": (
+        "dwarf_bench_tpu_torch/csrc/hist.cu",
+        "dwarf_bench_tpu/ops/hist_pallas.py:476"),
+    "groupby_small_swar_pallas": (
+        "dwarf_bench_tpu_torch/csrc/groupby.cu",
+        "dwarf_bench_tpu/ops/groupby_pallas.py:159"),
+    "groupby_small_pallas_f32": ("dwarf_bench_tpu_torch/csrc/groupby.cu",
+                                 "dwarf_bench_tpu/ops/groupby_pallas.py:59"),
 }
+
+STATS_NAMES = ("chunk_stats_pallas", "chunk_stats_roll_pallas",
+               "chunk_stats_fused")
+GROUPBY_NAMES = ("groupby_small_swar_pallas", "groupby_small_pallas_f32")
+
+# The bound of a kernel call: the bytes it must move (each input read once,
+# each output written once) over the H100's HBM rate, or its operations over
+# the card's 32-bit rate outside the tensor cores (the published float32
+# peak; these kernels do 32-bit integer work), whichever takes longer.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 
 SCAN_KERNELS = ("scan_tail_streams", "compact_mask", "emit_prefix")
 # the bulk hash probe: bitonic merge, fused fill, compaction before unsort
@@ -130,20 +179,50 @@ def nvcc_version(nvcc: str) -> str:
     return proc.stdout.strip().splitlines()[-1]
 
 
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by) of a call that moves ``nbytes`` and does
+    ``ops`` operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def busy_ms(fn, *args, k: int = 5):
+    """Device time of one ``fn(*args)``: the CUDA kernels' time in a
+    torch.profiler trace of ``k`` calls, over ``k`` (the host's dispatch
+    gaps between kernels are not in it). None when the trace holds no
+    kernel at all (the profiler lost the cycle): not measured, not 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(k):
+            fn(*args)
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / k / 1e3 if total_us > 0 else None
+
+
 def phase_kernels(dev):
-    """Each kernel against its plain twin on ``dev``. Returns
-    {kernel: {"max_abs_err", "ms", "plain_ms"}} with the times taken at the
-    kernel's first (main-path) case."""
+    """Each kernel, under each name it serves, against its plain twin on
+    ``dev``. Returns {name: {"max_abs_err", "ms", "plain_ms", "bound_ms",
+    "bound_by", "library_ms"}} with the times taken at the name's first
+    (main-path) case."""
     from dwarf_bench_tpu_torch.common.datagen import make_random
     from dwarf_bench_tpu_torch.ops import (
         bitonic_cuda,
+        chunk_stats_cuda,
         compact_cuda,
+        csr_join,
         cumsum_cuda,
         filter_cuda,
         groupby_cuda,
         hist_cuda,
         merge_fill_cuda,
         merge_lookup,
+        probe_cuda,
         reduce_cuda,
         scan_tail_cuda,
     )
@@ -151,7 +230,9 @@ def phase_kernels(dev):
     from dwarf_bench_tpu_torch.utils.timing import kernel_time, sync
 
     rng = np.random.default_rng(20261016)
-    stats = {name: {"max_abs_err": 0, "ms": None, "plain_ms": None}
+    stats = {name: {"max_abs_err": 0, "ms": None, "plain_ms": None,
+                    "bound_ms": None, "bound_by": None, "library_ms": None,
+                    "device_ms": None}
              for name in KERNELS}
 
     def t(a):
@@ -160,11 +241,16 @@ def phase_kernels(dev):
     def whole(res):
         return [], [(res, res.numel())]
 
-    def run(name, label, kernel, plain, *args, view=whole, timed=False):
+    def run(name, label, kernel, plain, *args, view=whole, timed=False,
+            cost=None, library=None):
         """Kernel against twin on ``args``. ``view`` maps a result to
         (counts, [(tensor, slots that hold data)]): a compaction's output is
-        garbage past its count, so only the twin's slots are compared."""
-        got_counts, got = view(sync(kernel(*args)))
+        garbage past its count, so only the twin's slots are compared. A
+        timed case also times ``library(*args)``, the one PyTorch call of
+        the same function where there is one, and takes the bound from
+        ``cost(result) = (bytes, operations)``."""
+        res = sync(kernel(*args))
+        got_counts, got = view(res)
         exp_counts, exp = view(sync(plain(*args)))
         err = max((abs(int(a) - int(b))
                    for a, b in zip(got_counts, exp_counts)), default=0)
@@ -175,25 +261,50 @@ def phase_kernels(dev):
             if k:
                 err = max(err, int((g[:k].to(torch.int64)
                                     - e[:k].to(torch.int64)).abs().max()))
-        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        st = stats[name]
+        st["max_abs_err"] = max(st["max_abs_err"], err)
         line = f"kernel {name} [{label}]: max_abs_err={err}"
         if timed:
             ms = kernel_time(kernel, *args, k=20) * 1e3
             plain_ms = kernel_time(plain, *args, k=20) * 1e3
-            if stats[name]["ms"] is None:
-                stats[name]["ms"], stats[name]["plain_ms"] = ms, plain_ms
-            line += f" kernel_ms={ms!r} plain_ms={plain_ms!r}"
+            lib_ms = None if library is None else \
+                kernel_time(library, *args, k=20) * 1e3
+            dev_ms = busy_ms(kernel, *args)
+            bound_ms, bound_by = bound(*cost(res))
+            if st["ms"] is None:
+                st.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          device_ms=dev_ms)
+            line += (f" kernel_ms={ms!r} device_ms={dev_ms!r} "
+                     f"plain_ms={plain_ms!r} library_ms={lib_ms!r} "
+                     f"bound_ms={bound_ms!r} ({bound_by})")
         print(line, flush=True)
         check(err == 0, f"{name} [{label}]: kernel and plain twin differ "
                         f"(max_abs_err {err})")
+
+    def index_add(nbins):
+        """The library call of a group-by sum into ``nbins`` bins."""
+        return lambda k, v, *_: torch.zeros(
+            nbins, dtype=torch.int32, device=dev).index_add_(0, k, v)
+
+    def keyed(n, nbins, ncols=1):
+        """Cost of a (weighted) histogram: keys (and values) read, bins
+        written; a compare and an add a row."""
+        return lambda res: (4 * (ncols * n + nbins), 2 * n)
 
     i32max, i32min = 2**31 - 1, -2**31
     # -- histogram (radix hi80 at 2^22, join build hi128 at 2^20) ------
     h, hp = hist_cuda.histogram, hist_cuda.histogram_plain
     radix_k = make_random(1 << 22, seed=1) - 1
-    run("histogram", "radix hi80 n=2^22", h, hp, t(radix_k), 80, timed=True)
-    run("histogram", "join hi128 n=2^20", h, hp,
-        t(make_random(1 << 20, seed=2) - 1), 128, timed=True)
+
+    def bincount(k, hi_bins):
+        return torch.bincount(k, minlength=hi_bins * 128)
+
+    run("histogram", "radix hi80 n=2^22", h, hp, t(radix_k), 80, timed=True,
+        cost=keyed(1 << 22, 80 * 128), library=bincount)
+    join_k = make_random(1 << 20, seed=2) - 1
+    run("histogram", "join hi128 n=2^20", h, hp, t(join_k), 128, timed=True,
+        cost=keyed(1 << 20, 128 * 128), library=bincount)
     run("histogram", "all out of range", h, hp,
         t(np.full(5000, 80 * 128, np.int64)), 80)
     run("histogram", "negative keys", h, hp,
@@ -209,7 +320,9 @@ def phase_kernels(dev):
     counts = np.bincount(radix_k, minlength=80 * 128)
     starts = np.cumsum(counts) - counts
     s = np.bincount(np.minimum(starts, n), minlength=n + 1)[:n]
-    run("cumsum", "radix expansion n=2^22", c, cp, t(s), -1, timed=True)
+    run("cumsum", "radix expansion n=2^22", c, cp, t(s), -1, timed=True,
+        cost=lambda res: (4 * (2 * n + 1), n),
+        library=lambda x, _: torch.cumsum(x, 0, dtype=torch.int32))
     run("cumsum", "n=1", c, cp, t([7]), 0)
     run("cumsum", "n=1000003 random int32", c, cp,
         t(rng.integers(i32min, i32max, 1_000_003, endpoint=True)), 0)
@@ -222,9 +335,10 @@ def phase_kernels(dev):
 
     # -- groupby_small (G=64 at 2^22) -----------------------------------
     g, gp = groupby_cuda.groupby_small, groupby_cuda.groupby_small_plain
-    run("groupby_small", "G=64 n=2^22", g, gp,
-        t(make_random(1 << 22, 0, 63, seed=3)),
-        t(make_random(1 << 22, seed=4)), 64, timed=True)
+    gb_k, gb_v = (t(make_random(1 << 22, 0, 63, seed=3)),
+                  t(make_random(1 << 22, seed=4)))
+    run("groupby_small", "G=64 n=2^22", g, gp, gb_k, gb_v, 64, timed=True,
+        cost=keyed(1 << 22, 64, 2), library=index_add(64))
     run("groupby_small", "G=4096 n=1000003", g, gp,
         t(rng.integers(0, 4096, 1_000_003)),
         t(rng.integers(1, 10000, 1_000_003)), 4096)
@@ -238,9 +352,11 @@ def phase_kernels(dev):
     # -- weighted_histogram (G=2^16 at 2^20; hi 256 and the hi < 256
     #    contract of weighted_histogram_i8_pallas) ----------------------
     w, wp = hist_cuda.weighted_histogram, hist_cuda.weighted_histogram_plain
-    run("weighted_histogram", "hi512 n=2^20", w, wp,
-        t(make_random(1 << 20, 0, 65535, seed=5)),
-        t(make_random(1 << 20, seed=6)), 512, timed=True)
+    big_k, big_v = (t(make_random(1 << 20, 0, 65535, seed=5)),
+                    t(make_random(1 << 20, seed=6)))
+    run("weighted_histogram", "hi512 n=2^20", w, wp, big_k, big_v, 512,
+        timed=True, cost=keyed(1 << 20, 1 << 16, 2),
+        library=index_add(1 << 16))
     run("weighted_histogram", "hi256 n=2^20", w, wp,
         t(rng.integers(-3, 256 * 128 + 99, 1 << 20)),
         t(rng.integers(1, 10000, 1 << 20)), 256)
@@ -280,12 +396,29 @@ def phase_kernels(dev):
     deep_x = make_random(1 << 20, seed=9)
     deep_x[rng.integers(0, 1 << 20, 1000)] = -700  # out-of-window singles
 
+    def copy_if_cost(n):
+        """Cost of the filter over n rows: x read, the kept rows and the
+        count written; a compare and a scan step a row."""
+        return lambda res: (4 * n + 4 * int(res[1]) + 4, 2 * n)
+
+    def mask_cost(n, ncols):
+        """Cost of compact_mask over n rows: the bool mask read, and only
+        the kept rows of each column read and written (this run's data
+        needs no other column value)."""
+        return lambda res: (n + 8 * ncols * int(res[1]) + 4, 2 * n)
+
     f, fp = filter_cuda.filter, filter_cuda.filter_plain
+
+    def masked_select(x, thr, _):
+        return torch.masked_select(x, x < thr)
+
     run("filter", "x<5 n=2^24", f, fp, scan_x, 5, scan_n,
-        view=counted(scan_n), timed=True)
+        view=counted(scan_n), timed=True, cost=copy_if_cost(scan_n),
+        library=masked_select)
     run("filter", "x<5000 n=2^20 (sel50)", f, fp,
         t(make_random(1 << 20, seed=8)), 5000, 1 << 20,
-        view=counted(1 << 20), timed=True)
+        view=counted(1 << 20), timed=True, cost=copy_if_cost(1 << 20),
+        library=masked_select)
     run("filter", "n=1", f, fp, t([4]), 5, 1, view=counted(1))
     run("filter", "nothing kept", f, fp, t(rng.integers(5, 10000, 70_001)),
         5, 70_001, view=counted(70_001))
@@ -304,8 +437,16 @@ def phase_kernels(dev):
     st, stp = scan_tail_cuda.scan_tail_streams, \
         scan_tail_cuda.scan_tail_streams_plain
     stat, base = chunk_stats(scan_x.view(-1, 128), 5)
+
+    def tail_cost(nch, cap_single):
+        """(stat, base) read; spos whole, the singles' values and the
+        multis' (id, base) and the two counts written."""
+        return lambda res: (4 * (2 * nch + cap_single + int(res[4])
+                                 + 2 * int(res[5]) + 2), 4 * nch)
+
     run("scan_tail_streams", "chunk_stats of the 2^24 scan", st, stp,
-        stat, base, 5, 16384, 512, view=tail(16384, 512), timed=True)
+        stat, base, 5, 16384, 512, view=tail(16384, 512), timed=True,
+        cost=tail_cost(scan_n // 128, 16384))
     dstat, dbase = chunk_stats(t(deep_x).view(-1, 128), 5)
     run("scan_tail_streams", "out-of-window singles", st, stp,
         dstat, dbase, 5, 16384, 512, view=tail(16384, 512))
@@ -316,15 +457,21 @@ def phase_kernels(dev):
 
     cm, cmp = compact_cuda.compact_mask, compact_cuda.compact_mask_plain
     gm = torch.from_numpy(rng.random(65536) < 2 / 128).to(dev)
+    def masked_selects(mask, cols, _):
+        return [torch.masked_select(c, mask) for c in cols]
+
     run("compact_mask", "65536 rows x 2 cols, capacity 4096", cm, cmp, gm,
         (t(rng.integers(0, scan_n, 65536)), t(rng.integers(1, 5, 65536))),
-        4096, view=counted(4096), timed=True)
+        4096, view=counted(4096), timed=True,
+        cost=mask_cost(65536, 2), library=masked_selects)
     scan_mask = scan_x < 5
     run("compact_mask", "2^24 rows x 1 col", cm, cmp, scan_mask, (scan_x,),
-        scan_n, view=counted(scan_n), timed=True)
+        scan_n, view=counted(scan_n), timed=True,
+        cost=mask_cost(scan_n, 1), library=masked_selects)
     run("compact_mask", "2^24 rows x 3 cols", cm, cmp, scan_mask,
         (scan_x, scan_x + 1, scan_x - 1), scan_n, view=counted(scan_n),
-        timed=True)
+        timed=True, cost=mask_cost(scan_n, 3),
+        library=masked_selects)
     def ones(n, keep):
         return torch.full((n,), keep, dtype=torch.bool, device=dev)
 
@@ -337,9 +484,14 @@ def phase_kernels(dev):
         4096, view=counted(4096))
 
     e, ep = compact_cuda.emit_prefix, compact_cuda.emit_prefix_plain
+    def copy_prefix(v, capacity):
+        out = torch.empty(capacity, dtype=torch.int32, device=dev)
+        return out[: v.numel()].copy_(v)
+
     run("emit_prefix", "L=20480 into 2^24", e, ep,
         t(rng.integers(i32min, i32max, 20480)), scan_n, view=prefix(20480),
-        timed=True)
+        timed=True, cost=lambda res: (8 * 20480, 20480),
+        library=copy_prefix)
     run("emit_prefix", "L = capacity", e, ep, t(np.arange(128)), 128,
         view=prefix(128))
     run("emit_prefix", "L=37, capacity 40", e, ep,
@@ -359,10 +511,24 @@ def phase_kernels(dev):
     in32 = merge_lookup.merge_columns(sk, sv, dp, 32)
     inm = merge_lookup.merge_columns(sk, sv, dp, membership=True)
     mb, mbp = bitonic_cuda.merge_bitonic, bitonic_cuda.merge_bitonic_plain
+
+    def network_cost(res):
+        """Every column read and written once; the network's N/2 compare-
+        exchanges in each of its log2 N stages, about 4 operations each."""
+        n_rows = res[0].numel()
+        return (8 * n_rows * len(res),
+                2 * n_rows * (n_rows.bit_length() - 1))
+
+    # the library call sorts the (col0, col1) pairs packed into one int64
+    # key (packed outside the timing: the sort is the call)
+    packed16 = (((in16[0].to(torch.int64) & 0xFFFFFFFF) << 32)
+                | (in16[1].to(torch.int64) & 0xFFFFFFFF)) ^ -(1 << 63)
     run("merge_bitonic", "N=2^25 x 2 cols (val16)", mb, mbp, in16, 2,
-        view=columns, timed=True)
+        view=columns, timed=True, cost=network_cost,
+        library=lambda cols, _: torch.sort(packed16))
+    del packed16
     run("merge_bitonic", "N=2^25 x 3 cols (val32)", mb, mbp, in32, 2,
-        view=columns, timed=True)
+        view=columns, timed=True, cost=network_cost)
 
     def bitonic(n, ncols, key_hi):
         """(key, aux) ascending then descending, ties included."""
@@ -389,12 +555,19 @@ def phase_kernels(dev):
 
     mf, mfp = merge_fill_cuda.merge_fill, merge_fill_cuda.merge_fill_plain
     m16, m32, mm = (mb(c, 2) for c in (in16, in32, inm))
+
+    def fill_cost(ncols):
+        """ncols merged columns read; dest and val written; about 10
+        operations a row (two scans and the fill)."""
+        return lambda res: (4 * (ncols + 2) * res[0].numel(),
+                            10 * res[0].numel())
+
     run("merge_fill", "N=2^25 val32", mf, mfp, m32[0], m32[1], m32[2], nq,
-        False, False, view=columns, timed=True)
+        False, False, view=columns, timed=True, cost=fill_cost(3))
     run("merge_fill", "N=2^25 val16", mf, mfp, m16[0], m16[1], None, nq,
-        True, False, view=columns, timed=True)
+        True, False, view=columns, timed=True, cost=fill_cost(2))
     run("merge_fill", "N=2^25 membership", mf, mfp, mm[0], mm[1], None, nq,
-        False, True, view=columns, timed=True)
+        False, True, view=columns, timed=True, cost=fill_cost(2))
     del in16, in32, inm, m16, m32, mm
     for n_any in (1, 1025, 1_000_003):
         cols = [t(rng.integers(i32min, i32max, n_any, endpoint=True))
@@ -410,7 +583,9 @@ def phase_kernels(dev):
         return [res], []
 
     run("reduce_sum", "n=2^24 in [1, 10000]", r, rp,
-        t(make_random(1 << 24, seed=10)), view=scalar, timed=True)
+        t(make_random(1 << 24, seed=10)), view=scalar, timed=True,
+        cost=lambda res: (4 * (1 << 24) + 4, 1 << 24),
+        library=lambda x: torch.sum(x, dtype=torch.int32))
     run("reduce_sum", "n=0", r, rp, t([]), view=scalar)
     run("reduce_sum", "n=1", r, rp, t([i32min]), view=scalar)
     run("reduce_sum", "sums wrap past 2^31 and 2^32", r, rp,
@@ -419,6 +594,96 @@ def phase_kernels(dev):
     run("reduce_sum", "n=1000003 random int32", r, rp, wide[:-1],
         view=scalar)
     run("reduce_sum", "misaligned start", r, rp, wide[1:], view=scalar)
+
+    # -- the JAX names of this slice: the chunk-stats kernel under its
+    #    three names (the scan at 2^24, x < 5) ---------------------------
+    def pair(res):
+        return [], [(c, c.numel()) for c in res]
+
+    nch = scan_n // 128
+    x2 = scan_x.view(nch, 128)
+    near_min = t(rng.integers(i32min, i32max, 3001 * 128, endpoint=True))
+    for name in STATS_NAMES:
+        fn = getattr(chunk_stats_cuda, name)
+        run(name, "nch=2^17 (2^24 rows, x<5)", fn, chunk_stats, x2, 5,
+            view=pair,
+            timed=True, cost=lambda res: (4 * (scan_n + 2 * nch),
+                                          8 * scan_n))
+        run(name, "threshold INT32_MIN+100", fn, chunk_stats,
+            near_min.view(3001, 128), i32min + 100, view=pair)
+        run(name, "nch=4097, a block part-filled", fn, chunk_stats,
+            x2[:4097], 5000, view=pair)
+        run(name, "misaligned view", fn, chunk_stats,
+            scan_x[1: 1 + 4096 * 128].view(4096, 128), 5, view=pair)
+
+    stc = scan_tail_cuda.scan_tail_compact
+    run("scan_tail_compact", "chunk_stats of the 2^24 scan", stc, stp,
+        stat, base, 5, 16384, 512, view=tail(16384, 512), timed=True,
+        cost=tail_cost(nch, 16384))
+    run("scan_tail_compact", "counts > caps", stc, stp, dstat, dbase, 5, 7,
+        3, view=tail(7, 3))
+    run("scan_tail_compact", "nch=1", stc, stp, t([512 + 3]), t([0]), 5,
+        16384, 512, view=tail(16384, 512))
+
+    # -- the dense join's lookup over a build_dense table of 2^20
+    #    make_random keys, 2^20 queries with some out of range -----------
+    table = csr_join.build_dense(t(make_random(1 << 20, seed=11)))
+    check(bool(table.packed3_ok), "build_dense table: packed3_ok is False")
+    ki = make_random(1 << 20, seed=12) - int(table.minv)
+    ki[rng.integers(0, 1 << 20, 1000)] = -1  # EMPTY queries
+    ki[:5] = [i32min, i32max, 1 << 14, 80 * 128, -7]
+    dki = t(ki)
+
+    def probe_cost(res):
+        """Queries read, (pos, cnt) written, the 64 KB and 512 B tables
+        read once."""
+        n_q = res[0].numel()
+        return 12 * n_q + 4 * ((1 << 14) + 128), 6 * n_q
+
+    pp = probe_cuda.probe_dense_plain
+    run("probe_dense_rel_pallas", "2^20 queries", probe_cuda.
+        probe_dense_rel_pallas, pp, table.packed3, table.base128, dki,
+        view=pair, timed=True, cost=probe_cost)
+    for hi_rows in (80, 128, 1):
+        run("probe_dense_cat_pallas", f"2^20 queries, hi_rows {hi_rows}",
+            probe_cuda.probe_dense_cat_pallas, pp, table.packed3,
+            table.base128, dki, hi_rows, view=pair, timed=hi_rows == 80,
+            cost=probe_cost)
+    wild = t(rng.integers(i32min, i32max, 1 << 14, endpoint=True))
+    run("probe_dense_rel_pallas", "any table (past 2^24)",
+        probe_cuda.probe_dense_rel_pallas, pp, wild, wild[:128], dki,
+        view=pair)
+
+    # -- the histogram and group-by variants ---------------------------
+    h16 = hist_cuda.histogram_16k_pallas
+    run("histogram_16k_pallas", "radix hi80 n=2^22", h16, hp, t(radix_k),
+        80, timed=True, cost=keyed(1 << 22, 80 * 128), library=bincount)
+    run("histogram_16k_pallas", "join hi128 n=2^20", h16, hp, t(join_k), 128,
+        timed=True, cost=keyed(1 << 20, 128 * 128), library=bincount)
+    run("histogram_16k_pallas", "negative and out-of-range keys", h16, hp,
+        t(rng.integers(-100, 80 * 128 + 100, 100_003)), 80)
+    k14 = t(make_random(1 << 20, 0, (1 << 14) - 1, seed=13))
+    run("weighted_histogram_pallas", "hi128 n=2^20", hist_cuda.
+        weighted_histogram_pallas, wp, k14, big_v, 128, timed=True,
+        cost=keyed(1 << 20, 1 << 14, 2), library=index_add(1 << 14))
+    run("weighted_histogram_pallas", "hi512 n=2^20 (G=2^16)", hist_cuda.
+        weighted_histogram_pallas, wp, big_k, big_v, 512, timed=True,
+        cost=keyed(1 << 20, 1 << 16, 2), library=index_add(1 << 16))
+    run("weighted_histogram_16k_pallas", "n=2^20",
+        hist_cuda.weighted_histogram_16k_pallas,
+        lambda k, v: wp(k, v, 128), k14, big_v, timed=True,
+        cost=keyed(1 << 20, 1 << 14, 2), library=index_add(1 << 14))
+    g10k = t(rng.integers(-3, 10_000 + 200, 1 << 20))
+    for name in GROUPBY_NAMES:
+        fn, gdp = getattr(groupby_cuda, name), \
+            groupby_cuda.groupby_digits_plain
+        run(name, "G=64 n=2^22", fn, gdp, gb_k, gb_v, 64, timed=True,
+            cost=keyed(1 << 22, 64, 2), library=index_add(64))
+        run(name, "G=10000 n=2^20 (weighted route), out-of-range keys", fn,
+            gdp, g10k, big_v, 10_000)
+        run(name, "G=4096 n=1000003", fn, gdp,
+            t(rng.integers(0, 4200, 1_000_003)),
+            t(rng.integers(1, 10000, 1_000_003)), 4096)
     return stats
 
 
@@ -596,6 +861,216 @@ def hash_ops(dev):
           f"has_rows_per_s={n / t_has!r}", flush=True)
 
 
+def phase_library(dev):
+    """This slice's paths through the library entry points, with the
+    launch counts set to 0 before and read after. Returns the counts."""
+    from dwarf_bench_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    stats_pallas_paths(dev)
+    csr_join_path(dev)
+    opt_in_names(dev)
+    launches = dict(_build.LAUNCHES)
+    print(f"launches in the library phase: {launches}", flush=True)
+    return launches
+
+
+def _launched(before, kernels, label):
+    from dwarf_bench_tpu_torch.ops import _build
+
+    for k in kernels:
+        check(_build.LAUNCHES[k] > before[k],
+              f"{label}: kernel {k} was not launched")
+
+
+def stats_pallas_paths(dev):
+    """filter_sparse's round-2 path, stats_pallas=True (the chunk-stats
+    kernel) and False (plain stats), at 2^24 x < 5 (bench.py run_scan) and
+    2^20 x < 5000 (run_scan_sel50_extra: the caps trip, kernel filter),
+    held to filter_oracle and timed beside stats_pallas=None, in the order
+    None, False, True, True, False, None; then stats_pallas=True with
+    assume_sparse=True under CUDA's sync debug mode "error"."""
+    from dwarf_bench_tpu_torch.common.datagen import make_random
+    from dwarf_bench_tpu_torch.ops import _build, scan
+    from dwarf_bench_tpu_torch.utils.timing import kernel_time
+
+    for n, thr, seed, label in ((1 << 24, 5, 7, "2^24 x<5"),
+                                (1 << 20, 5000, 8, "2^20 x<5000")):
+        x = make_random(n, seed=seed)
+        xd = torch.from_numpy(x).to(dev)
+        expected = scan.filter_oracle(x, thr)
+        sparse = scan.sparse_caps_ok(x, thr)
+        times = {None: [], False: [], True: []}
+        for sp in (None, False, True, True, False, None):
+            before = dict(_build.LAUNCHES)
+            out, count = scan.filter_sparse(xd, thr, stats_pallas=sp)
+            check(int(count) == len(expected) and np.array_equal(
+                out[: len(expected)].cpu().numpy(), expected),
+                f"filter_sparse {label} stats_pallas={sp}: differs from "
+                "filter_oracle")
+            if sp:
+                _launched(before, ("chunk_stats_pallas", "cumsum",
+                                   "compact_mask")
+                          + (("emit_prefix",) if sparse else ("filter",)),
+                          f"filter_sparse {label} stats_pallas=True")
+            call = (lambda v, sp=sp:
+                    scan.filter_sparse(v, thr, stats_pallas=sp))
+            times[sp].append((kernel_time(call, xd) * 1e3,
+                              busy_ms(call, xd)))
+        print(f"filter_sparse {label} ({'sparse' if sparse else 'caps trip'}"
+              f"): valid; (kernel_time_ms, device_ms) stats_pallas=None "
+              f"{times[None]!r} False {times[False]!r} True "
+              f"{times[True]!r}", flush=True)
+
+    x = make_random(1 << 24, seed=7)
+    xd = torch.from_numpy(x).to(dev)
+    check(scan.sparse_caps_ok(x), "scan data does not fit the sparse caps")
+    scan.filter_sparse(xd, assume_sparse=True, stats_pallas=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, count = scan.filter_sparse(xd, assume_sparse=True,
+                                        stats_pallas=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    expected = scan.filter_oracle(x)
+    check(int(count) == len(expected) and np.array_equal(
+        out[: len(expected)].cpu().numpy(), expected),
+        "filter_sparse 2^24 x<5 stats_pallas assume_sparse: differs from "
+        "filter_oracle")
+    print("filter_sparse 2^24 x<5 stats_pallas=True assume_sparse: valid, "
+          "no host read", flush=True)
+
+
+def csr_join_path(dev):
+    """The general CSR join at 2^20 rows a side: A keys drawn with
+    duplicates from [1, 2^19), B from [1, 2^20) (half miss), spans far past
+    the dense index's 2^14. build + probe_merge (JoinOmnisci's engine),
+    probe_merge_bitonic, probe and probe_sorted, each held to the exact
+    validate_csr_join; probe_merge_bitonic must merge 4 columns with
+    merge_bitonic and compact with compact_mask."""
+    from dwarf_bench_tpu_torch.dwarfs.join import validate_csr_join
+    from dwarf_bench_tpu_torch.ops import _build, bitonic_cuda, csr_join
+    from dwarf_bench_tpu_torch.utils.timing import kernel_time, sync
+
+    n = 1 << 20
+    rng = np.random.default_rng(20261017)
+    a = rng.integers(1, 1 << 19, n).astype(np.uint32)
+    b = rng.integers(1, 1 << 20, n).astype(np.uint32)
+    distinct = len(np.unique(a))
+    da, db = (torch.from_numpy(c.view(np.int32)).to(dev) for c in (a, b))
+
+    def build(keys):
+        return csr_join.build(keys, distinct, 2 * distinct)
+
+    table = sync(build(da))
+    ids = table.id_buffer.cpu().numpy()
+    merged = []
+    plain_merge = bitonic_cuda.merge_bitonic
+
+    def spy(cols, num_cmp=2):
+        merged.append((len(cols), cols[0].numel(), num_cmp))
+        return plain_merge(cols, num_cmp)
+
+    times = {"build": kernel_time(build, da) * 1e3}
+    for name in ("probe_merge", "probe_merge_bitonic", "probe",
+                 "probe_sorted"):
+        fn = getattr(csr_join, name)
+        before = dict(_build.LAUNCHES)
+        bitonic_cuda.merge_bitonic = spy
+        try:
+            res = sync(fn(table, db))
+        finally:
+            bitonic_cuda.merge_bitonic = plain_merge
+        check(validate_csr_join(a, b, ids, res.found.cpu().numpy(),
+                                res.pos.cpu().numpy(),
+                                res.counts.cpu().numpy()),
+              f"csr_join {name} 2^20: differs from the oracle")
+        if name == "probe_merge_bitonic":
+            _launched(before, ("merge_bitonic", "compact_mask"),
+                      "csr_join probe_merge_bitonic")
+            n_pow2 = 1 << (distinct + n - 1).bit_length()
+            check(merged == [(4, n_pow2, 2)],
+                  f"probe_merge_bitonic merged {merged}, expected "
+                  f"[(4, {n_pow2}, 2)]")
+        times[name] = kernel_time(fn, table, db) * 1e3
+    print(f"csr_join 2^20 x 2^20 ({distinct} distinct A keys): valid; "
+          f"kernel_time_ms {times!r}; join (build + probe_merge) "
+          f"{times['build'] + times['probe_merge']!r}; device_ms build "
+          f"{busy_ms(build, da)!r} probe_merge_bitonic "
+          f"{busy_ms(csr_join.probe_merge_bitonic, table, db)!r}",
+          flush=True)
+
+
+def opt_in_names(dev):
+    """Every opt-in JAX name of this slice once, at the shape its path
+    gives it, held to its plain version."""
+    from dwarf_bench_tpu_torch.common.datagen import make_random
+    from dwarf_bench_tpu_torch.ops import (
+        chunk_stats_cuda,
+        csr_join,
+        groupby_cuda,
+        hist_cuda,
+        probe_cuda,
+        scan_tail_cuda,
+    )
+    from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def same(label, got, exp):
+        got = got if isinstance(got, tuple) else (got,)
+        exp = exp if isinstance(exp, tuple) else (exp,)
+        check(all(torch.equal(g, e) for g, e in zip(got, exp)),
+              f"{label}: differs from its plain version")
+
+    x2 = t(make_random(1 << 24, seed=7)).view(-1, 128)
+    stat, base = chunk_stats(x2, 5)
+    for name in STATS_NAMES:
+        same(name, getattr(chunk_stats_cuda, name)(x2, 5), (stat, base))
+    got = scan_tail_cuda.scan_tail_compact(stat, base, 5, 16384, 512)
+    exp = scan_tail_cuda.scan_tail_streams_plain(stat, base, 5, 16384, 512)
+    ks, km = min(int(exp[4]), 16384), min(int(exp[5]), 512)
+    same("scan_tail_compact", (got[0], got[1][:ks], got[2][:km],
+                               got[3][:km], got[4], got[5]),
+         (exp[0], exp[1][:ks], exp[2][:km], exp[3][:km], exp[4], exp[5]))
+
+    a, b = make_random(1 << 20, seed=11), make_random(1 << 20, seed=12)
+    table = csr_join.build_dense(t(a))
+    res = csr_join.probe_dense(table, t(b))
+    ki = t(b - int(table.minv))
+    for name, args in (("probe_dense_rel_pallas", ()),
+                       ("probe_dense_cat_pallas", (80,))):
+        pos, cnt = getattr(probe_cuda, name)(table.packed3, table.base128,
+                                             ki, *args)
+        same(name, (pos, cnt), (res.pos, res.counts))
+
+    radix_k = t(make_random(1 << 22, seed=1) - 1)
+    same("histogram_16k_pallas", hist_cuda.histogram_16k_pallas(radix_k, 80),
+         hist_cuda.histogram_plain(radix_k, 80))
+    k, v = t(make_random(1 << 20, 0, 65535, seed=5)), \
+        t(make_random(1 << 20, seed=6))
+    same("weighted_histogram_pallas",
+         hist_cuda.weighted_histogram_pallas(k, v, 512),
+         hist_cuda.weighted_histogram_plain(k, v, 512))
+    k14 = t(make_random(1 << 20, 0, (1 << 14) - 1, seed=13))
+    same("weighted_histogram_16k_pallas",
+         hist_cuda.weighted_histogram_16k_pallas(k14, v),
+         hist_cuda.weighted_histogram_plain(k14, v, 128))
+    gk, gv = t(make_random(1 << 22, 0, 63, seed=3)), \
+        t(make_random(1 << 22, seed=4))
+    gk10k = t(make_random(1 << 20, 0, 9999, seed=14))
+    for name in GROUPBY_NAMES:
+        fn = getattr(groupby_cuda, name)
+        same(f"{name} G=64", fn(gk, gv, 64),
+             groupby_cuda.groupby_digits_plain(gk, gv, 64))
+        same(f"{name} G=10000", fn(gk10k, v, 10_000),
+             groupby_cuda.groupby_digits_plain(gk10k, v, 10_000))
+    print("opt-in names: each equal to its plain version at its main-path "
+          "shape", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -611,22 +1086,26 @@ def main() -> int:
     print(f"kernel library ready in {time.perf_counter() - t0!r} s "
           f"(nvcc build {_build.build_seconds!r} s)", flush=True)
 
+    dev = torch.device("cuda:0")
     t1 = time.perf_counter()
-    stats = phase_kernels(torch.device("cuda:0"))
+    stats = phase_kernels(dev)
     t2 = time.perf_counter()
-    launches = phase_dwarfs("gpu")
+    dwarf_launches = phase_dwarfs("gpu")
+    t3 = time.perf_counter()
+    library_launches = phase_library(dev)
     print(f"phase seconds: kernels {t2 - t1!r}, dwarfs and ops "
-          f"{time.perf_counter() - t2!r}, whole script "
-          f"{time.perf_counter() - t0!r}", flush=True)
+          f"{t3 - t2!r}, library paths {time.perf_counter() - t3!r}, "
+          f"whole script {time.perf_counter() - t0!r}", flush=True)
+    launches = {name: dwarf_launches[name] + library_launches[name]
+                for name in KERNELS}
     for name in KERNELS:
-        check(launches[name] > 0,
-              f"kernel {name} was not launched by the dwarfs")
+        check(launches[name] > 0, f"kernel {name} was not launched by the "
+                                  "dwarfs or the library paths")
+        check(stats[name]["ms"] is not None, f"kernel {name} was not timed")
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+         "launches": launches[name], **stats[name]}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

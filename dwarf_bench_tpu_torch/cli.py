@@ -51,7 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--device",
         type=str,
         default="default",
-        help="Device to run on (cpu | gpu; cuda is an alias of gpu).",
+        help="Device to run on (cpu | gpu; cuda is an alias of gpu). The "
+        "default is the card; without CUDA it fails instead of running on "
+        "the CPU.",
     )
     p.add_argument(
         "--report_path",

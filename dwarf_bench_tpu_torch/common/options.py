@@ -27,7 +27,7 @@ class DeviceType(enum.Enum):
 def parse_device_type(s: str) -> DeviceType:
     """Parse a device string the way the reference's ``operator>>`` does
     (common/options.cpp:3-18): case-insensitive; unknown strings map to
-    Default."""
+    Default, which is the card (``common/device.py``)."""
     t = s.strip().lower()
     if t == "cpu":
         return DeviceType.CPU

@@ -6,9 +6,10 @@ Reference:
     seq_join oracle.
   * NestedLoopJoin (join/nested_join.cpp): O(n^2) dense compare.
   * JoinOmnisci (join/join_omnisci.cpp): one-to-many CSR-index join over
-    duplicate keys; build = table + id buffer, probe = lookup views. The
-    benchmark's [1, 10000] keys always take the dense index; the general
-    (hash) CSR path is not ported yet.
+    duplicate keys; build = table + id buffer, probe = lookup views. Keys
+    within one 2^14 window (the benchmark's [1, 10000]) take the dense
+    index, wider keys the general one (``csr_join.build`` +
+    ``probe_merge``), as in the JAX dwarf.
   * SlabJoin (join/slab_join.cpp): hash join through the slab (bucketized)
     table; unique keys; build/probe split.
 
@@ -140,26 +141,34 @@ class JoinOmnisci(TorchDwarf):
         s = lambda i: derive_seed(opts.seed, buf_size, i)
         a_keys = make_random(buf_size, seed=s(0), dtype=np.uint32)
         b_keys = make_random(buf_size, seed=s(1), dtype=np.uint32)
-        if not csr_join.dense_applicable(a_keys, b_keys):
-            raise NotImplementedError(
-                "JoinOmnisci: keys span 2^14 or more and need the general "
-                "CSR join (hash build + merge probe), which is not ported "
-                "yet (ROADMAP queue 1 #9)"
-            )
-        # hi_rows pinned to 128, as the JAX dwarf pins it
-        hi_rows = 128
+        if csr_join.dense_applicable(a_keys, b_keys):
+            # hi_rows pinned to 128, as the JAX dwarf pins it
+            def build(da):
+                return csr_join.build_dense(da)
+
+            def probe(table, db):
+                return csr_join.probe_dense(table, db, hi_rows=128)
+        else:
+            # the host's distinct count sizes the table
+            # (join_omnisci.cpp:55-69)
+            unique_keys = len(np.unique(a_keys))
+
+            def build(da):
+                return csr_join.build(da, unique_keys, 2 * unique_keys)
+
+            probe = csr_join.probe_merge
         device = self.device(opts)
 
         def join(da, db):
-            table = csr_join.build_dense(da)
-            return table, csr_join.probe_dense(table, db, hi_rows=hi_rows)
+            table = build(da)
+            return table, probe(table, db)
 
         for _ in range(opts.iterations):
             t0 = time.perf_counter()
             da_k, db_k = self.put(device, a_keys, b_keys)
-            table = sync(csr_join.build_dense(da_k))
+            table = sync(build(da_k))
             t_build = time.perf_counter()
-            res = sync(csr_join.probe_dense(table, db_k, hi_rows=hi_rows))
+            res = sync(probe(table, db_k))
             t_end = time.perf_counter()
             kernel_time = self.kernel_timed(buf_size, join, da_k, db_k)
             result = HashJoinResult(

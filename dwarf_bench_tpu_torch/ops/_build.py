@@ -12,10 +12,12 @@ Each C entry point returns ``cudaGetLastError()`` after its launches, and
 shared memory, too many threads) never runs, and ``torch.cuda.synchronize``
 would not report it.
 
-``LAUNCHES`` counts, per kernel, the launches the wrappers in
-``ops/*_cuda.py`` made, so a run can show which kernels its path went
-through. Each wrapper adds one where it launches its kernel, and nowhere
-else.
+``LAUNCHES`` counts, per kernel and per JAX name a kernel serves, the
+launches the wrappers in ``ops/*_cuda.py`` made, so a run can show which
+kernels its path went through. Each wrapper adds one where it launches its
+kernel, and nowhere else; a name's wrapper that launches through another
+wrapper (``histogram_16k_pallas`` through ``histogram``) counts under both
+names.
 """
 
 from __future__ import annotations
@@ -71,6 +73,8 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "dbt_merge_fill_scratch": ([_I64], _I64),
+    "dbt_chunk_stats": ([_P, _I64, _I32, _P, _P, _P], ctypes.c_int),
+    "dbt_probe_dense": ([_P, _P, _P, _I64, _I32, _P, _P, _P], ctypes.c_int),
     "dbt_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -86,6 +90,19 @@ LAUNCHES: Dict[str, int] = {
     "merge_bitonic": 0,
     "merge_fill": 0,
     "reduce_sum": 0,
+    # JAX names served by the kernels above or by csrc/chunk_stats.cu and
+    # csrc/probe_dense.cu: each name's wrapper counts its own launches
+    "chunk_stats_pallas": 0,
+    "chunk_stats_roll_pallas": 0,
+    "chunk_stats_fused": 0,
+    "scan_tail_compact": 0,
+    "probe_dense_rel_pallas": 0,
+    "probe_dense_cat_pallas": 0,
+    "histogram_16k_pallas": 0,
+    "weighted_histogram_pallas": 0,
+    "weighted_histogram_16k_pallas": 0,
+    "groupby_small_swar_pallas": 0,
+    "groupby_small_pallas_f32": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -11,6 +11,12 @@ above hi_bins·128 (negatives, EMPTY, padding) counts nowhere.
 256): (hi_bins·128,) int32 sums of v per bin, wrapping mod 2^32, with
 out-of-range keys dropped. The card's kernel has no v < 2^14 precondition.
 
+``histogram_16k_pallas`` (hist_pallas.py:40, hi_bins <= 128) and
+``weighted_histogram_pallas`` (:279, hi_bins <= 512, with its 2^14-bin alias
+``weighted_histogram_16k_pallas``, :476) are the same two contracts under
+their JAX names, with those functions' ``hi_bins % 8 == 0`` checks; each
+counts its own launches.
+
 A wrapper takes the twin only for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises.
 """
@@ -77,4 +83,49 @@ def weighted_histogram(
     _build.launch("dbt_weighted_histogram", device, k.data_ptr(),
                   v.data_ptr(), k.numel(), out.data_ptr(), nbins)
     _build.LAUNCHES["weighted_histogram"] += 1
+    return out
+
+
+def _check_jax_hi_bins(op: str, hi_bins: int, most: int) -> int:
+    """The JAX kernels' ``hi_bins % 8 == 0 and hi_bins <= most`` check, as
+    a ValueError."""
+    hi_bins = int(hi_bins)
+    if hi_bins % 8 or not 8 <= hi_bins <= most:
+        raise ValueError(f"{op}: hi_bins must be a multiple of 8 in "
+                         f"[8, {most}], got {hi_bins}")
+    return hi_bins
+
+
+def histogram_16k_pallas(k: torch.Tensor, hi_bins: int = 128) -> torch.Tensor:
+    """``dwarf_bench_tpu/ops/hist_pallas.py:40`` ``histogram_16k_pallas``:
+    ``histogram``'s contract for hi_bins <= 128, served by its kernel."""
+    hi_bins = _check_jax_hi_bins("histogram_16k_pallas", hi_bins,
+                                 MAX_HIST_HI_BINS)
+    out = histogram(k, hi_bins)
+    if out.is_cuda:
+        _build.LAUNCHES["histogram_16k_pallas"] += 1
+    return out
+
+
+def weighted_histogram_pallas(k: torch.Tensor, v: torch.Tensor,
+                              hi_bins: int = 128) -> torch.Tensor:
+    """``dwarf_bench_tpu/ops/hist_pallas.py:279`` ``weighted_histogram_pallas``:
+    ``weighted_histogram``'s contract for hi_bins <= 512, served by its
+    kernel. The JAX kernel asks 0 <= v < 2^14 (two 7-bit planes); the card's
+    kernel sums any int32 values mod 2^32."""
+    hi_bins = _check_jax_hi_bins("weighted_histogram_pallas", hi_bins,
+                                 MAX_WEIGHTED_HI_BINS)
+    out = weighted_histogram(k, v, hi_bins)
+    if out.is_cuda:
+        _build.LAUNCHES["weighted_histogram_pallas"] += 1
+    return out
+
+
+def weighted_histogram_16k_pallas(k: torch.Tensor,
+                                  v: torch.Tensor) -> torch.Tensor:
+    """``hist_pallas.py:476``, the alias of ``weighted_histogram_pallas``
+    at 2^14 bins."""
+    out = weighted_histogram_pallas(k, v, 128)
+    if out.is_cuda:
+        _build.LAUNCHES["weighted_histogram_16k_pallas"] += 1
     return out

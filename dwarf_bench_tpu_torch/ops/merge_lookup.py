@@ -32,7 +32,7 @@ _TAG = -(1 << 31)  # aux bit 31: query row (table rows clear it)
 _M32 = 0xFFFFFFFF
 
 
-def _deltas(tv: torch.Tensor) -> torch.Tensor:
+def deltas(tv: torch.Tensor) -> torch.Tensor:
     """dv_i = val_i - val_{i-1} mod 2^32, dv_0 = val_0."""
     if tv.numel() == 0:
         return tv.clone()
@@ -49,7 +49,7 @@ def merge_lookup(sorted_keys, sorted_vals, queries):
     nt, nq = sorted_keys.shape[0], queries.shape[0]
     dev = queries.device
     keys_all = torch.cat([sorted_keys, queries])
-    vals_all = torch.cat([_deltas(sorted_vals),
+    vals_all = torch.cat([deltas(sorted_vals),
                           torch.zeros(nq, dtype=torch.int32, device=dev)])
     # idx doubles as the class marker (-1 = table row); the STABLE sort
     # keeps table rows (first in the concat) first among equal keys
@@ -88,7 +88,7 @@ def merge_columns(sorted_keys, sorted_vals, queries, val_bits: int = 32,
 
     total = nt + nq
     npad = (1 << (total - 1).bit_length()) - total
-    dv = _deltas(sorted_vals)
+    dv = deltas(sorted_vals)
     aux_t = torch.zeros(nt, dtype=torch.int32, device=dev)
     extra = ()
     if not membership and val_bits == 16:

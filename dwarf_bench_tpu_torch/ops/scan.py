@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import compact_cuda, filter_cuda, scan_tail_cuda
+from . import chunk_stats_cuda, compact_cuda, filter_cuda, scan_tail_cuda
 from .chunk_stats import chunk_stats
 from .filter_cuda import DEFAULT_THRESHOLD  # x < 5 (scan/scan.cl:14)
 from .primitives import compact, exclusive_cumsum
@@ -152,6 +152,16 @@ def filter_sparse(
     instead, so every selectivity gives the right answer. This structure
     runs on every device; on the CPU the kernels' plain twins stand in.
 
+    ``stats_pallas`` selects the JAX package's round-2 path, as there
+    (dwarf_bench_tpu/ops/scan.py:244-256, 334-410): phase A from the
+    ``chunk_stats`` kernel (``csrc/chunk_stats.cu`` under the name
+    ``chunk_stats_pallas``, with ``base`` from the cumsum kernel) when True,
+    from the plain ``chunk_stats`` when False; then the singles' (base,
+    value) and the multi chunks' ids are compacted separately
+    (``compact_mask``, 2 columns, then 1) and the multis' offsets gathered
+    from ``base``. The rest is the same. None (the default) is the
+    streaming tail above.
+
     ``assume_sparse=True`` (PRECONDITION: ``sparse_caps_ok`` holds on the
     host) runs the sparse pipeline without looking at the caps, and reads
     nothing back from the card. Otherwise the caps' predicate is read once
@@ -165,11 +175,6 @@ def filter_sparse(
     assert chunk == 128, "filter_sparse chunks are 128 rows"
     if capacity is None:
         capacity = n
-    if stats_pallas:
-        raise NotImplementedError(
-            "filter_sparse(stats_pallas=True): the Pallas chunk_stats "
-            "kernels are not ported (ROADMAP queue 2 #12)"
-        )
     if x.dtype != torch.int32 or n >= (1 << 30):
         if x.device.type == "cuda":
             return filter_cuda.filter(x, threshold, capacity)
@@ -191,11 +196,28 @@ def filter_sparse(
                                   device=device)]) if pad else x
     nch = xp.shape[0] // chunk
     x2 = xp.view(nch, chunk)
-    stat, base = chunk_stats(x2, thr)
+    if stats_pallas is None:
+        stat, base = chunk_stats(x2, thr)
+        spos, sval, mids, mbase, n_single, n_multi = (
+            scan_tail_cuda.scan_tail_streams(stat, base, thr, cap_single,
+                                             cap_mc)
+        )
+    else:
+        # the JAX package's round-2 path: the stats from the kernel or from
+        # plain torch, then one compaction per chunk class
+        stats = chunk_stats_cuda.chunk_stats_pallas if stats_pallas \
+            else chunk_stats
+        stat, base = stats(x2, thr)
+        cnt, vsw = stat >> 9, stat & 511
+        single = (cnt == 1) & (vsw >= 1) & (vsw <= 255)
+        multi = (cnt >= 1) & ~single
+        (spos, sval), n_single = compact_cuda.compact_mask(
+            single, (base, thr - vsw), cap_single)
+        spos = torch.where(_iota(cap_single, device) < n_single, spos, _BIG)
+        (mids,), n_multi = compact_cuda.compact_mask(
+            multi, (_iota(nch, device),), cap_mc)
+        mbase = base[torch.where(_iota(cap_mc, device) < n_multi, mids, 0)]
     total = base[-1] + (stat[-1] >> 9)
-    spos, sval, mids, mbase, n_single, n_multi = (
-        scan_tail_cuda.scan_tail_streams(stat, base, thr, cap_single, cap_mc)
-    )
     n_melems = total - n_single
     if not assume_sparse:
         ok = (
@@ -211,7 +233,6 @@ def filter_sparse(
     valid_m = _iota(cap_mc, device) < n_multi
     rows = x2[torch.where(valid_m, mids, 0)]  # (cap_mc, chunk) row gather
     gm = (rows < thr) & valid_m[:, None]
-    # mbase rides the multi compaction: no base[mids] gather
     gpos = torch.where(gm, mbase[:, None] + exclusive_cumsum(
         gm.to(torch.int32), 1), _BIG)
     (mpos, mval), _ = compact_cuda.compact_mask(

@@ -14,6 +14,9 @@ single. Returns ``(spos, sval, mids, mbase, n_single, n_multi)``:
   * ``n_single`` and ``n_multi``: the full counts, 0-d int32 tensors on the
     input's device.
 
+``scan_tail_compact`` is the same contract under its JAX name, with that
+function's limit of 2^18 chunks.
+
 A wrapper takes the twin only for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises.
 """
@@ -78,3 +81,26 @@ def scan_tail_streams(stat, base, threshold: int, cap_single: int,
                   counts.data_ptr(), scratch.data_ptr())
     _build.LAUNCHES["scan_tail_streams"] += 1
     return spos, sval, mids, mbase, counts[0], counts[1]
+
+
+# scan_tail_compact's single-step merge tree holds at most 128 rows of 2048
+# chunks (dwarf_bench_tpu/ops/scan_tail_pallas.py:38-39, 294)
+MAX_COMPACT_CHUNKS = 128 * 2048
+
+
+def scan_tail_compact(stat, base, threshold: int, cap_single: int,
+                      cap_mc: int):
+    """``scan_tail_compact`` (``dwarf_bench_tpu/ops/scan_tail_pallas.py:266``):
+    ``scan_tail_streams``' contract and outputs, served by its kernel, with
+    the JAX function's limit of 2^18 chunks (ValueError above it, where the
+    JAX function's ``assert rows <= _MAX_ROWS`` fires)."""
+    device = _check(stat, base, threshold, cap_single, cap_mc)[0]
+    if stat.numel() > MAX_COMPACT_CHUNKS:
+        raise ValueError(f"scan_tail_compact: {stat.numel()} chunks; at "
+                         f"most {MAX_COMPACT_CHUNKS}")
+    if device.type == "cpu":
+        return scan_tail_streams_plain(stat, base, threshold, cap_single,
+                                       cap_mc)
+    out = scan_tail_streams(stat, base, threshold, cap_single, cap_mc)
+    _build.LAUNCHES["scan_tail_compact"] += 1
+    return out

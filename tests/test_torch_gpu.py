@@ -17,7 +17,9 @@ from dwarf_bench_tpu_torch.ops import (
     _build,
     bitonic_cuda,
     bucket_hash,
+    chunk_stats_cuda,
     compact_cuda,
+    csr_join,
     cuckoo,
     cumsum_cuda,
     filter_cuda,
@@ -25,6 +27,7 @@ from dwarf_bench_tpu_torch.ops import (
     hist_cuda,
     merge_fill_cuda,
     merge_lookup,
+    probe_cuda,
     reduce_cuda,
     scan,
     scan_tail_cuda,
@@ -184,17 +187,187 @@ def test_wrappers_count_their_launches(cuda):
     bitonic_cuda.merge_bitonic((k8, k8))
     merge_fill_cuda.merge_fill(k, k, k, 4)
     reduce_cuda.reduce_sum(k)
+    # the JAX names: each counts itself and the kernel wrapper it goes
+    # through
+    x2 = torch.zeros(2, 128, dtype=torch.int32, device=cuda)
+    chunk_stats_cuda.chunk_stats_pallas(x2, 5)  # + cumsum
+    chunk_stats_cuda.chunk_stats_roll_pallas(x2, 5)  # + cumsum
+    chunk_stats_cuda.chunk_stats_fused(x2, 5)  # + cumsum
+    scan_tail_cuda.scan_tail_compact(k, k, 5, 4, 4)  # + scan_tail_streams
+    p3 = torch.zeros(1 << 14, dtype=torch.int32, device=cuda)
+    probe_cuda.probe_dense_rel_pallas(p3, p3[:128], k)
+    probe_cuda.probe_dense_cat_pallas(p3, p3[:128], k, 80)
+    hist_cuda.histogram_16k_pallas(k, 8)  # + histogram
+    hist_cuda.weighted_histogram_pallas(k, k, 8)  # + weighted_histogram
+    # + weighted_histogram_pallas + weighted_histogram
+    hist_cuda.weighted_histogram_16k_pallas(k, k)
+    groupby_cuda.groupby_small_swar_pallas(k, k, 8)  # + groupby_small
+    groupby_cuda.groupby_small_pallas_f32(k, k, 5000)  # + weighted_histogram
     hist_cuda.histogram_plain(k, 8)
     filter_cuda.filter_plain(k, 5)
     bitonic_cuda.merge_bitonic_plain((k8, k8))
     merge_fill_cuda.merge_fill_plain(k, k, k, 4)
     reduce_cuda.reduce_sum_plain(k)
+    chunk_stats_cuda.chunk_stats_plain(x2, 5)
+    probe_cuda.probe_dense_plain(p3, p3[:128], k)
+    groupby_cuda.groupby_digits_plain(k, k, 5000)
     assert {n: _build.LAUNCHES[n] - before[n] for n in before} == {
-        "histogram": 1, "cumsum": 1, "groupby_small": 1,
-        "weighted_histogram": 1, "filter": 1, "compact_mask": 1,
-        "emit_prefix": 1, "scan_tail_streams": 1, "merge_bitonic": 1,
+        "histogram": 2, "cumsum": 4, "groupby_small": 2,
+        "weighted_histogram": 4, "filter": 1, "compact_mask": 1,
+        "emit_prefix": 1, "scan_tail_streams": 2, "merge_bitonic": 1,
         "merge_fill": 1, "reduce_sum": 1,
+        "chunk_stats_pallas": 1, "chunk_stats_roll_pallas": 1,
+        "chunk_stats_fused": 1, "scan_tail_compact": 1,
+        "probe_dense_rel_pallas": 1, "probe_dense_cat_pallas": 1,
+        "histogram_16k_pallas": 1, "weighted_histogram_pallas": 2,
+        "weighted_histogram_16k_pallas": 1, "groupby_small_swar_pallas": 1,
+        "groupby_small_pallas_f32": 1,
     }
+
+
+STATS_NAMES = ("chunk_stats_pallas", "chunk_stats_roll_pallas",
+               "chunk_stats_fused")
+
+
+@pytest.mark.parametrize("name", STATS_NAMES)
+@pytest.mark.parametrize("nch,thr", [(1, 5), (7, 5), (4097, 10000),
+                                     (131072, 5), (3001, -(2**31) + 100),
+                                     (3001, -(2**31)), (300, 2**31 - 1)])
+def test_chunk_stats(cuda, rng, name, nch, thr):
+    """nch 7 and 4097 leave a block part-filled; thresholds near INT32_MIN
+    wrap t - 512 and must give the plain version's garbage bit for bit."""
+    x = _t(rng.integers(-(2**31), 2**31, nch * 128 + 1), cuda)
+    x[5] = thr
+    for x2 in (x[:-1].view(nch, 128), x[1:].view(nch, 128)):  # misaligned
+        got = getattr(chunk_stats_cuda, name)(x2, thr)
+        exp = chunk_stats_cuda.chunk_stats_plain(x2, thr)
+        assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+
+
+@pytest.mark.parametrize("nch", [1, 2048, 131072, 1 << 18])
+def test_scan_tail_compact(cuda, rng, nch):
+    x = rng.integers(1, 10001, (nch, 128))
+    hit = rng.random((nch, 128)) < 5e-4
+    x[hit] = rng.integers(-1000, 5, hit.sum())
+    stat, base = chunk_stats(_t(x, cuda), 5)
+    for caps in ((16384, 512), (7, 3)):
+        got = scan_tail_cuda.scan_tail_compact(stat, base, 5, *caps)
+        exp = scan_tail_cuda.scan_tail_streams_plain(stat, base, 5, *caps)
+        ns, nm = int(exp[4]), int(exp[5])
+        assert (int(got[4]), int(got[5])) == (ns, nm)
+        assert torch.equal(got[0], exp[0])
+        assert _same_prefix(got[1], exp[1], min(ns, caps[0]))
+        assert _same_prefix(got[2], exp[2], min(nm, caps[1]))
+        assert _same_prefix(got[3], exp[3], min(nm, caps[1]))
+    big = torch.zeros((1 << 18) + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        scan_tail_cuda.scan_tail_compact(big, big, 5, 16, 16)
+
+
+@pytest.mark.parametrize("hi_rows", [128, 80, 1])
+@pytest.mark.parametrize("n", [1, 4097, 1 << 20])
+def test_probe_dense(cuda, rng, hi_rows, n):
+    """Any table (the contract holds past the JAX kernels' 2^24 limit)."""
+    p3 = _t(rng.integers(-(2**31), 2**31, 1 << 14), cuda)
+    p3[:3] = torch.tensor([0, 1023, 1024])
+    base = _t(rng.integers(-(2**31), 2**31, 128), cuda)
+    ki = _t(rng.integers(-5, hi_rows * 128 + 5, n), cuda)
+    ki[: min(n, 4)] = torch.tensor([-1, -(2**31), 2**31 - 1,
+                                    hi_rows * 128][: min(n, 4)])
+    names = ["probe_dense_cat_pallas"] + (["probe_dense_rel_pallas"]
+                                          if hi_rows == 128 else [])
+    exp = probe_cuda.probe_dense_plain(p3, base, ki, hi_rows)
+    for name in names:
+        args = (p3, base, ki) + ((hi_rows,) if "cat" in name else ())
+        got = getattr(probe_cuda, name)(*args)
+        assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+
+
+@pytest.mark.parametrize("n", [1, 1_000_003])
+def test_hist_and_groupby_variants(cuda, rng, n):
+    for hb in (8, 80, 128):
+        k = _t(rng.integers(-100, hb * 128 + 100, n), cuda)
+        assert torch.equal(hist_cuda.histogram_16k_pallas(k, hb),
+                           hist_cuda.histogram_plain(k, hb))
+    v = _t(rng.integers(0, 2**32, n, dtype=np.uint64), cuda)
+    for hb in (128, 512):
+        k = _t(rng.integers(-3, hb * 128 + 3, n), cuda)
+        assert torch.equal(hist_cuda.weighted_histogram_pallas(k, v, hb),
+                           hist_cuda.weighted_histogram_plain(k, v, hb))
+    assert torch.equal(hist_cuda.weighted_histogram_16k_pallas(k, v),
+                       hist_cuda.weighted_histogram_plain(k, v, 128))
+    for g in (1, 64, 4096, 4097, 10000, 15360):
+        k = _t(rng.integers(-3, g + 300, n), cuda)
+        exp = groupby_cuda.groupby_digits_plain(k, v, g)
+        assert torch.equal(groupby_cuda.groupby_small_swar_pallas(k, v, g),
+                           exp)
+        assert torch.equal(groupby_cuda.groupby_small_pallas_f32(k, v, g),
+                           exp)
+
+
+@pytest.mark.parametrize("stats_pallas", [True, False])
+@pytest.mark.parametrize("n,threshold,deep", [(1 << 20, 5, 0),
+                                              (100_003, 5, 5),
+                                              (1 << 20, 5000, 0)])
+def test_filter_sparse_stats_pallas(cuda, rng, stats_pallas, n, threshold,
+                                    deep):
+    x = rng.integers(1, 10000, n, endpoint=True).astype(np.int32)
+    x[rng.integers(0, n, deep)] = -700
+    expected = scan.filter_oracle(x, threshold)
+    runs = [{}]
+    if scan.sparse_caps_ok(x, threshold):
+        runs.append({"assume_sparse": True})
+    for kw in runs:
+        before = _build.LAUNCHES["chunk_stats_pallas"]
+        out, count = scan.filter_sparse(_t(x, cuda), threshold,
+                                        stats_pallas=stats_pallas, **kw)
+        assert int(count) == len(expected)
+        assert np.array_equal(out[: len(expected)].cpu().numpy(), expected)
+        assert (_build.LAUNCHES["chunk_stats_pallas"] > before) == \
+            stats_pallas
+
+
+def test_stats_pallas_assume_sparse_reads_nothing_back(cuda, rng):
+    x = _t(rng.integers(1, 10000, 1 << 20, endpoint=True), cuda)
+    for stats_pallas in (True, False):
+        scan.filter_sparse(x, assume_sparse=True, stats_pallas=stats_pallas)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, count = scan.filter_sparse(x, assume_sparse=True,
+                                            stats_pallas=stats_pallas)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert out.is_cuda and count.is_cuda
+
+
+@pytest.mark.parametrize("na,nb", [(1000, 777), (1 << 17, 1 << 17)])
+def test_csr_join_on_cuda_matches_cpu(cuda, rng, na, nb):
+    """The general CSR join on the card gives the CPU build's tables and
+    answers; probe_merge_bitonic runs the 4-column merge and compact_mask
+    there."""
+    pool = rng.integers(0, 2**32 - 1, na // 3 + 1, dtype=np.uint64)
+    a = rng.choice(pool, na).astype(np.uint32)
+    a[:3] = 0xFFFFFFFF
+    b = np.concatenate([rng.choice(pool, nb // 2), rng.integers(
+        0, 2**32, nb - nb // 2, dtype=np.uint64)]).astype(np.uint32)
+    b[:3] = [0xFFFFFFFF, 0, 0xFFFFFFFE]
+    d = len(np.unique(a[a != 0xFFFFFFFF]))
+    da, db = _t(a.view(np.int32), cuda), _t(b.view(np.int32), cuda)
+    gt = csr_join.build(da, d, 2 * d)
+    ct = csr_join.build(da.cpu(), d, 2 * d)
+    for f in ("pos", "counts", "distinct_keys", "num_distinct"):
+        assert torch.equal(getattr(gt, f).cpu(), getattr(ct, f))
+    exp = csr_join.probe(ct, db.cpu())
+    for name in ("probe", "probe_sorted", "probe_merge",
+                 "probe_merge_bitonic"):
+        before = dict(_build.LAUNCHES)
+        got = getattr(csr_join, name)(gt, db)
+        for g, e in zip(got, exp):
+            assert torch.equal(g.cpu(), e)
+        if name == "probe_merge_bitonic":
+            assert _build.LAUNCHES["merge_bitonic"] > before["merge_bitonic"]
+            assert _build.LAUNCHES["compact_mask"] > before["compact_mask"]
 
 
 def _bitonic_cols(rng, n, ncols, key_hi):

@@ -42,6 +42,9 @@ def test_import_loads_no_jax():
         "import dwarf_bench_tpu_torch.ops.bucket_hash, dwarf_bench_tpu_torch.ops.reduce\n"
         "import dwarf_bench_tpu_torch.dwarfs.hash_build, dwarf_bench_tpu_torch.dwarfs.probe\n"
         "import dwarf_bench_tpu_torch.dwarfs.reduce, dwarf_bench_tpu_torch.native\n"
+        "import dwarf_bench_tpu_torch.ops.chunk_stats_cuda, dwarf_bench_tpu_torch.ops.probe_cuda\n"
+        "import dwarf_bench_tpu_torch.ops.hist_cuda, dwarf_bench_tpu_torch.ops.groupby_cuda\n"
+        "import dwarf_bench_tpu_torch.ops.scan_tail_cuda, dwarf_bench_tpu_torch.dwarfs.join\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dwarf_bench_tpu'))\n"
         "assert not bad, bad\n"

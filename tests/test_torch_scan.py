@@ -105,17 +105,54 @@ def test_sparse_caps_ok_matches_jax(rng):
 
 
 def test_filter_sparse_general_engines_on_cpu(rng):
-    """Non-int32 input takes filter_two_pass on the CPU; the Pallas stats
-    kernels are not ported and say so."""
+    """Non-int32 input takes filter_two_pass on the CPU, whatever
+    stats_pallas says."""
     x = _data(rng, 5000).astype(np.int64)
-    out, count = scan.filter_sparse(torch.from_numpy(x), 5000)
     expected = scan.filter_oracle(x, 5000)
-    assert int(count) == len(expected)
-    assert out.dtype == torch.int64
-    assert np.array_equal(out.numpy()[: len(expected)], expected)
-    with pytest.raises(NotImplementedError, match="queue 2 #12"):
-        scan.filter_sparse(torch.from_numpy(x.astype(np.int32)),
-                           stats_pallas=True)
+    for stats_pallas in (None, True, False):
+        out, count = scan.filter_sparse(torch.from_numpy(x), 5000,
+                                        stats_pallas=stats_pallas)
+        assert int(count) == len(expected)
+        assert out.dtype == torch.int64
+        assert np.array_equal(out.numpy()[: len(expected)], expected)
+
+
+@pytest.mark.parametrize("n,threshold,deep,assume", [
+    (1 << 18, 5, 0, False),      # benchmark selectivity: the sparse branch
+    (1 << 18, 5, 40, True),      # assume_sparse, out-of-window singles
+    (100_000, 5, 5, False),      # n not a multiple of 128
+    (100_000, 5, 5, True),
+    (100_000, 5000, 0, False),   # dense: the caps trip, general branch
+])
+def test_filter_sparse_stats_pallas_matches_jax(rng, n, threshold, deep,
+                                                assume):
+    """The round-2 path (stats_pallas=True: the chunk-stats kernel's name;
+    False: the plain stats) against the JAX package's round-2 path with its
+    Pallas stats kernel in interpret mode, and against filter_oracle."""
+    x = _data(rng, n, deep)
+    if assume:
+        assert scan.sparse_caps_ok(x, threshold)
+    ref = jax_scan.filter_sparse(jnp.asarray(x), threshold, interpret=True,
+                                 stats_pallas=True, assume_sparse=assume)
+    for stats_pallas in (True, False):
+        got = scan.filter_sparse(torch.from_numpy(x), threshold,
+                                 stats_pallas=stats_pallas,
+                                 assume_sparse=assume)
+        _same(got, ref, x, threshold)
+
+
+def test_stats_pallas_thresholds_near_int32_min(rng):
+    """Where threshold - 512 would wrap, the round-2 path takes the general
+    engine, as the JAX package's does."""
+    x = _data(rng, 3000)
+    x[:7] = np.array([-(2**31), -(2**31) + 1, -(2**31) + 600, 0, 5, 6, 7])
+    for threshold in (-(2**31) + 512, -(2**31) + 513, -(2**31) + 700):
+        ref = jax_scan.filter_sparse(jnp.asarray(x), threshold,
+                                     interpret=True, stats_pallas=True)
+        for stats_pallas in (True, False):
+            got = scan.filter_sparse(torch.from_numpy(x), threshold,
+                                     stats_pallas=stats_pallas)
+            _same(got, ref, x, threshold)
 
 
 def test_assume_sparse_reads_nothing_back(rng, monkeypatch):
@@ -139,6 +176,21 @@ def test_assume_sparse_reads_nothing_back(rng, monkeypatch):
     with pytest.raises(AssertionError, match="host read"):
         scan.filter_sparse(x)
     assert reads == ["__bool__"]
+
+
+def test_stats_pallas_assume_sparse_reads_nothing_back(rng, monkeypatch):
+    """The round-2 path with the caps checked on the host reads no tensor's
+    value on the host either."""
+    x = torch.from_numpy(_data(rng, 1 << 16, 20))
+
+    def host_read(self, *args, **kwargs):
+        raise AssertionError("host read")
+
+    for name in ("item", "tolist", "numpy", "__bool__", "__int__",
+                 "__index__", "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, host_read)
+    for stats_pallas in (True, False):
+        scan.filter_sparse(x, assume_sparse=True, stats_pallas=stats_pallas)
 
 
 def _csv_rows(path):

@@ -16,6 +16,9 @@ import torch
 
 from dwarf_bench_tpu.cli import main as jax_main
 from dwarf_bench_tpu.common import datagen as jax_datagen
+from dwarf_bench_tpu.common.options import DeviceType as JaxDeviceType
+from dwarf_bench_tpu.common.options import RunOptions as JaxRunOptions
+from dwarf_bench_tpu.dwarfs import join as jax_join_dwarf
 from dwarf_bench_tpu_torch.common import datagen
 from dwarf_bench_tpu_torch.common.device import resolve_device
 from dwarf_bench_tpu_torch.common.options import (
@@ -110,18 +113,56 @@ def test_gpu_without_cuda_raises(tmp_path):
     assert not os.path.exists(tmp_path / "r.csv")
 
 
-def test_wide_join_keys_raise_not_implemented(monkeypatch):
-    """Keys past one 2^14 window need the general CSR join, which is not
-    ported: the dwarf says so instead of running another engine."""
+def test_wide_join_keys_take_the_general_join(monkeypatch, tmp_path):
+    """Keys past one 2^14 window take the general CSR join (build +
+    probe_merge), as in the JAX dwarf: the port's dwarf is valid on them
+    and writes the JAX dwarf's CSV header."""
     def wide(size, lo=1, hi=10000, seed=0, dtype=np.int32):
         return np.arange(size, dtype=dtype) * np.asarray(70_000, dtype)
 
     monkeypatch.setattr(join_dwarf, "make_random", wide)
-    dwarf = join_dwarf.JoinOmnisci()
-    opts = RunOptions(device_ty=DeviceType.CPU, input_size=[4])
-    dwarf.init(opts)
-    with pytest.raises(NotImplementedError, match="queue 1 #9"):
-        dwarf.run(opts)
+    monkeypatch.setattr(jax_join_dwarf, "make_random", wide)
+    assert not csr_join.dense_applicable(wide(4), wide(4))
+    runs = ((join_dwarf, RunOptions(device_ty=DeviceType.CPU)),
+            (jax_join_dwarf, JaxRunOptions(device_ty=JaxDeviceType.CPU)))
+    csvs = []
+    for module, opts in runs:
+        opts.input_size, opts.iterations = [4, 1000], 2
+        opts.report_path = str(tmp_path / f"{len(csvs)}.csv")
+        dwarf = module.JoinOmnisci()
+        dwarf.init(opts)
+        with contextlib.redirect_stdout(io.StringIO()):
+            dwarf.run(opts)
+        dwarf.report(opts)
+        csvs.append(opts.report_path)
+        if module is join_dwarf:
+            results = [r.result for r in dwarf.get_results()]
+            assert len(results) == 4 and all(r.valid for r in results)
+    port, ref = (open(p).read().splitlines() for p in csvs)
+    assert port[0] == ref[0] == \
+        "device_type,buf_size_bytes,host_time_ms,kernel_time_ms"
+    assert [r.split(",")[:2] for r in port] == [r.split(",")[:2] for r in ref]
+
+
+def test_default_device_needs_cuda(tmp_path):
+    """DEFAULT is the card: without CUDA it raises, and the CLI without
+    --device exits 1 instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for dt in (DeviceType.DEFAULT, parse_device_type("tpu")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device(dt)
+    assert RunOptions().device_ty is DeviceType.DEFAULT
+    for extra in ([], ["--device=default"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "dwarf_bench_tpu_torch", "Radix",
+             "--input_size", "16", *extra,
+             f"--report_path={tmp_path / 'r.csv'}"],
+            cwd=REPO, capture_output=True, text=True, timeout=300,
+        )
+        assert proc.returncode == 1
+        assert "CUDA is not available" in proc.stderr
+        assert not os.path.exists(tmp_path / "r.csv")
 
 
 def test_join_validator_rejects_corruption(rng):
