@@ -14,7 +14,8 @@ with nvcc, then:
      output is an integer); prints both times, the time of one PyTorch
      library call of the same function where there is one, and the bound
      (the least time the card could take: bytes over 3.35 TB/s or
-     operations over 67 TOP/s, whichever is larger);
+     operations over 67 TOP/s, whichever is larger; for the lock kernel,
+     one assumed L2 round trip per serialized acquisition);
   3. drives the dwarfs through the CLI entry point with ``--device=gpu``
      (Radix 2^22, GroupBy 2^22 with G=64, GroupBy 2^20 with G=2^16,
      JoinOmnisci 2^20, TwoPassScan, DPLScan and DPLScanCuda 2^24,
@@ -36,7 +37,16 @@ with nvcc, then:
      probe_merge_bitonic, probe, probe_sorted) against the exact
      validate_csr_join; and every opt-in JAX name once at its main-path
      shape, against its plain version;
-  5. prints one JSON line with each kernel's launches, error and times, and
+  5. drives the library front end with the launch counts set to 0: the
+     three examples (bench_usage, vadd, lock_add) as subprocesses on the
+     card; GroupByLocal through the CLI at 2^22 rows (G=64 with 64
+     executors: groupby_small; G=20 with 1024: weighted_histogram); the four
+     Constant* dwarfs; ``DwarfBench.make_measurements`` on
+     ApiDeviceType.GPU for each DwarfKind (Sort and GroupBy 2^22, Join
+     2^20, Scan 2^24, three iterations); the vadd and lock_add examples in
+     this process; and every measurement-script name once at its main's
+     shape, against its plain version;
+  6. prints one JSON line with each kernel's launches, error and times, and
      last the JSON line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. It exits non-zero at once
@@ -59,6 +69,9 @@ import torch
 # the default report header; tests/test_torch_slice.py holds the port to
 # the JAX package's own CSV on the CPU).
 JAX_CSV_HEADER = "device_type,buf_size_bytes,host_time_ms,kernel_time_ms"
+
+HIST_CU = "dwarf_bench_tpu_torch/csrc/hist.cu"
+GROUPBY_CU = "dwarf_bench_tpu_torch/csrc/groupby.cu"
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -110,6 +123,26 @@ KERNELS = {
         "dwarf_bench_tpu/ops/groupby_pallas.py:159"),
     "groupby_small_pallas_f32": ("dwarf_bench_tpu_torch/csrc/groupby.cu",
                                  "dwarf_bench_tpu/ops/groupby_pallas.py:59"),
+    # the examples' kernels
+    "vadd_pallas": ("dwarf_bench_tpu_torch/csrc/vadd.cu", "examples/vadd.py:21"),
+    "grid_accumulate": ("dwarf_bench_tpu_torch/csrc/lock_add.cu",
+                        "examples/lock_add.py:20"),
+    # the measurement scripts' names (ops/measure_variants.py)
+    "histogram_16k_i8cmp": (HIST_CU, "scripts/measure_r2.py:38"),
+    "hist16k_bf16cmp": (HIST_CU, "scripts/measure_r2b.py:37"),
+    "groupby_small_v2": (GROUPBY_CU, "scripts/measure_r2b.py:106"),
+    "groupby_small_v3": (GROUPBY_CU, "scripts/measure_r2c.py:42"),
+    "weighted_histogram_i8": (HIST_CU, "scripts/measure_r2c.py:146"),
+    "dyn_store_probe": (HIST_CU, "scripts/measure_r2c.py:228"),
+    "hist_variant": (HIST_CU, "scripts/measure_r3.py:60"),
+    "whist_i8": (HIST_CU, "scripts/measure_r3.py:121"),
+    "groupby_small_v5": (GROUPBY_CU, "scripts/measure_r3b.py:39"),
+    "hist_rows": (HIST_CU, "scripts/measure_r3c.py:24"),
+    "hist_swar": (HIST_CU, "scripts/measure_r4.py:70"),
+    "groupby_small_stacked": (GROUPBY_CU, "scripts/measure_r4.py:574"),
+    "_gb_diag_kernel_factory": ("dwarf_bench_tpu_torch/csrc/gb_diag.cu",
+                                "scripts/measure_r5.py:485"),
+    "_gb_dbuf_kernel": (GROUPBY_CU, "scripts/measure_r5.py:645"),
 }
 
 STATS_NAMES = ("chunk_stats_pallas", "chunk_stats_roll_pallas",
@@ -122,6 +155,12 @@ GROUPBY_NAMES = ("groupby_small_swar_pallas", "groupby_small_pallas_f32")
 # peak; these kernels do 32-bit integer work), whichever takes longer.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+# One L2 round trip of an atomic, the least a lock acquisition that another
+# block must see can take: about 200 SM cycles at the H100's 1.98 GHz boost
+# clock. An assumed latency (published microbenchmarks of Hopper's L2 give
+# 200-270 cycles for a hit), not a rate of the card's data sheet and not
+# measured here.
+L2_ROUND_TRIP_S = 1.0e-7
 
 SCAN_KERNELS = ("scan_tail_streams", "compact_mask", "emit_prefix")
 # the bulk hash probe: bitonic merge, fused fill, compaction before unsort
@@ -179,10 +218,12 @@ def nvcc_version(nvcc: str) -> str:
     return proc.stdout.strip().splitlines()[-1]
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, serial_s: float = 0.0):
     """(bound_ms, bound_by) of a call that moves ``nbytes`` and does
-    ``ops`` operations."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    ``ops`` operations, of which a chain that cannot overlap takes
+    ``serial_s`` seconds."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(ops / OPS_PER_S, serial_s)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -220,11 +261,14 @@ def phase_kernels(dev):
         filter_cuda,
         groupby_cuda,
         hist_cuda,
+        lock_add_cuda,
+        measure_variants,
         merge_fill_cuda,
         merge_lookup,
         probe_cuda,
         reduce_cuda,
         scan_tail_cuda,
+        vadd_cuda,
     )
     from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
     from dwarf_bench_tpu_torch.utils.timing import kernel_time, sync
@@ -684,6 +728,117 @@ def phase_kernels(dev):
         run(name, "G=4096 n=1000003", fn, gdp,
             t(rng.integers(0, 4200, 1_000_003)),
             t(rng.integers(1, 10000, 1_000_003)), 4096)
+
+    # -- the examples' kernels: vadd at the example's (8, 128) and timed
+    #    at 2^24; the lock at the example's 64 blocks and at 2^16 ---------
+    va, vap = vadd_cuda.vadd_pallas, vadd_cuda.vadd_plain
+
+    def bits(res):
+        """A float result compared by its bit patterns."""
+        return [], [(res.reshape(-1).view(torch.int32), res.numel())]
+
+    def f32(n):
+        return torch.from_numpy(
+            rng.standard_normal(n).astype(np.float32)).to(dev)
+
+    run("vadd_pallas", "(8, 128) f32", va, vap, f32(1024).view(8, 128),
+        f32(1024).view(8, 128), view=bits)
+    fa, fb = f32(1 << 24), f32(1 << 24)
+    run("vadd_pallas", "2^24 f32", va, vap, fa, fb, view=bits, timed=True,
+        cost=lambda res: (12 * (1 << 24), 1 << 24), library=torch.add)
+    run("vadd_pallas", "2^24 - 1 f32, misaligned", va, vap, fa[1:], fb[1:],
+        view=bits)
+    run("vadd_pallas", "int32 wrapping, n=1000003", va, vap,
+        t(rng.integers(i32min, i32max, 1_000_003, endpoint=True)),
+        t(rng.integers(i32min, i32max, 1_000_003, endpoint=True)))
+    del fa, fb
+
+    def acc(n_steps, anchor):
+        """grid_accumulate on ``anchor``'s device (a tensor argument, so
+        that kernel_time times it with CUDA events)."""
+        return lock_add_cuda.grid_accumulate(n_steps, anchor.device)
+
+    def acc_plain(n_steps, anchor):
+        return lock_add_cuda.grid_accumulate_plain(n_steps, anchor.device)
+
+    def lock_cost(n_steps):
+        """The counter and the lock written; n_steps acquisitions, each at
+        least one L2 round trip after the last, none overlapping."""
+        return lambda res: (8, 2 * n_steps, n_steps * L2_ROUND_TRIP_S)
+
+    anchor = torch.zeros(1, device=dev)
+    run("grid_accumulate", "n_steps=64", acc, acc_plain, 64, anchor,
+        timed=True, cost=lock_cost(64))
+    run("grid_accumulate", "n_steps=1", acc, acc_plain, 1, anchor)
+    run("grid_accumulate", "n_steps=2^16", acc, acc_plain, 1 << 16, anchor,
+        timed=True, cost=lock_cost(1 << 16))
+    per = kernel_time(acc, 1 << 16, anchor, k=5)
+    print(f"grid_accumulate 2^16: {per / (1 << 16) * 1e6!r} us per lock "
+          f"acquisition (events)", flush=True)
+
+    # -- the measurement scripts' names at their mains' shapes (2^22 keys
+    #    in [1, 10000]; G = 2^16 weighted at 2^20; 256 probe indices) and a
+    #    part-filled block with out-of-range keys ------------------------
+    mv = measure_variants
+    x22 = t(make_random(1 << 22, seed=1))
+    for name, fn, hb in (
+            ("histogram_16k_i8cmp", mv.histogram_16k_i8cmp, 128),
+            ("hist16k_bf16cmp", mv.hist16k_bf16cmp, 128),
+            ("hist_variant", lambda k: mv.hist_variant(k, 128, i16=True),
+             128),
+            ("hist_rows", lambda k: mv.hist_rows(k, 128, rows=32), 128),
+            ("hist_swar", lambda k: mv.hist_swar(k, 80, "f5"), 80)):
+        plain = lambda k, hb=hb: hp(k, hb)
+        run(name, f"hi{hb} n=2^22", fn, plain, x22, timed=True,
+            cost=keyed(1 << 22, hb * 128),
+            library=lambda k, hb=hb: bincount(k, hb))
+        run(name, f"hi{hb} n=1000003, out-of-range keys", fn, plain,
+            t(rng.integers(-100, hb * 128 + 100, 1_000_003)))
+    probe_plain = lambda i: hp(i, 64).view(64, 128)
+    run("dyn_store_probe", "256 indices", mv.dyn_store_probe, probe_plain,
+        t(rng.integers(0, 64 * 128, 256)), timed=True,
+        cost=keyed(256, 64 * 128), library=lambda i: bincount(i, 64))
+    run("dyn_store_probe", "out-of-range indices", mv.dyn_store_probe,
+        probe_plain, t(rng.choice([-1, i32min, 8192, 8191, 0], 1001)))
+    for name in ("weighted_histogram_i8", "whist_i8"):
+        run(name, "hi512 n=2^20", getattr(mv, name), wp, big_k, big_v, 512,
+            timed=True, cost=keyed(1 << 20, 1 << 16, 2),
+            library=index_add(1 << 16))
+        run(name, "hi64 n=1000003, out-of-range keys", getattr(mv, name), wp,
+            t(rng.integers(-3, 64 * 128 + 99, 1_000_003)),
+            t(rng.integers(1, 10000, 1_000_003)), 64)
+    for name, fn in (
+            ("groupby_small_v2", mv.groupby_small_v2),
+            ("groupby_small_v3", mv.groupby_small_v3),
+            ("groupby_small_v5", lambda k, v, g: mv.groupby_small_v5(
+                k, v, g, rows=32, w=4096)),
+            ("groupby_small_stacked", mv.groupby_small_stacked)):
+        run(name, "G=64 n=2^22", fn, gp, gb_k, gb_v, 64, timed=True,
+            cost=keyed(1 << 22, 64, 2), library=index_add(64))
+        run(name, "G=4096 n=1000003, out-of-range keys", fn, gp,
+            t(rng.integers(-3, 4096 + 100, 1_000_003)),
+            t(rng.integers(1, 10000, 1_000_003)), 4096)
+    run("_gb_dbuf_kernel", "ga=gb=8 n=2^22", mv._gb_dbuf_kernel(),
+        lambda k, v: gp(k, v, 64), gb_k, gb_v, timed=True,
+        cost=keyed(1 << 22, 64, 2), library=index_add(64))
+
+    def diag_cost(mode, n, rows=32, w=4096, gb=8):
+        """The rows a mode reads (key and value), the 64 cells written."""
+        read = {"full": n, "dotonly": -(-n // (rows * w)) * w,
+                "nodot": -(-n // (rows * w)) * rows * gb}[mode]
+        return lambda res: (8 * read + 4 * 64, 2 * read)
+
+    odd = (1 << 18) + 777
+    for mode in measure_variants.DIAG_MODES:
+        fn = mv._gb_diag_kernel_factory(mode)
+        plain = (lambda k, v, mode=mode:
+                 mv.gb_diag_plain(k, v, mode, 8, 8, 32, 4096))
+        run("_gb_diag_kernel_factory", f"{mode} n=2^22", fn, plain, gb_k,
+            gb_v, timed=True, cost=diag_cost(mode, 1 << 22))
+        run("_gb_diag_kernel_factory",
+            f"{mode} n=2^18+777 (part-filled block), out-of-range keys",
+            fn, plain, t(rng.integers(-5, 64 + 5, odd)),
+            t(rng.integers(i32min, i32max, odd, endpoint=True)))
     return stats
 
 
@@ -1071,6 +1226,201 @@ def opt_in_names(dev):
           "shape", flush=True)
 
 
+# GroupByLocal through the CLI: (rows, groups, executors, the kernel the
+# executor-offset group-by must launch). 64 x 64 partial groups take the
+# groupby_small kernel; 20 x 1024 (the API's GroupByRunOptions) take the
+# weighted histogram.
+GROUPBY_LOCAL_RUNS = [
+    (1 << 22, 64, 64, "groupby_small"),
+    (1 << 22, 20, 1024, "weighted_histogram"),
+]
+GROUPBY_LOCAL_HEADER = ("device_type,buf_size_bytes,total_time,"
+                        "group_by_time,reduction_time")
+CONSTANT_DWARFS = ("ConstantExample", "ConstantExampleCAPI",
+                   "ConstantExampleDPCPP", "ConstantExampleDPCPPCuda")
+# DwarfBench on ApiDeviceType.GPU: (kind, rows, the registry name it runs)
+API_RUNS = [("Sort", 1 << 22, "RadixCuda"), ("GroupBy", 1 << 22, "GroupByCuda"),
+            ("Join", 1 << 20, "JoinOmnisciCuda"),
+            ("Scan", 1 << 24, "DPLScanCuda")]
+# the examples as their users run them, and a line each must print
+EXAMPLES = [("bench_usage", "GroupBy: dataSize=1024 microseconds="),
+            ("vadd", "pallas vadd ok: True"), ("lock_add", "64 = 64")]
+
+
+def phase_front_end(dev):
+    """This slice's entry points with the launch counts set to 0 before and
+    read after: the three examples as subprocesses on the card (started
+    first, waited for last), GroupByLocal through the CLI, the Constant*
+    dwarfs, ``DwarfBench.make_measurements`` on ApiDeviceType.GPU for each
+    DwarfKind at the main-path sizes, the vadd and lock_add examples' main
+    in this process, and every measurement-script name once at its main
+    shape against its plain version. Returns the counts."""
+    from dwarf_bench_tpu_torch.ops import _build
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    try:
+        for name, _ in EXAMPLES:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", f"dwarf_bench_tpu_torch.examples.{name}"],
+                cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        _build.reset_launches()
+        groupby_local_runs()
+        constant_runs()
+        api_runs()
+        examples_in_process()
+        script_names(dev)
+        launches = dict(_build.LAUNCHES)
+        for (name, line), proc in zip(EXAMPLES, procs):
+            out = proc.communicate(timeout=600)[0]
+            check(proc.returncode == 0 and line in out,
+                  f"example {name}: exit code {proc.returncode}, output "
+                  f"{out[-2000:]!r}")
+            print(f"example {name} (subprocess): exit 0, "
+                  f"{len(out.splitlines())} lines", flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"launches in the front-end phase: {launches}", flush=True)
+    return launches
+
+
+def groupby_local_runs():
+    from dwarf_bench_tpu_torch import cli, populate_registry
+    from dwarf_bench_tpu_torch.ops import _build
+
+    registry = populate_registry()
+    with tempfile.TemporaryDirectory() as tmp:
+        for rows, groups, executors, kernel in GROUPBY_LOCAL_RUNS:
+            label = f"GroupByLocal {rows} G={groups} executors={executors}"
+            before = _build.LAUNCHES[kernel]
+            csv = os.path.join(tmp, f"{groups}_{executors}.csv")
+            rc = cli.main(["GroupByLocal", "--device=gpu", "--input_size",
+                           str(rows), "--iterations=3",
+                           f"--groups_count={groups}",
+                           f"--executors={executors}",
+                           f"--report_path={csv}"])
+            check(rc == 0, f"{label}: CLI exit code {rc}")
+            results = [r.result for r in
+                       registry.find("GroupByLocal").get_results()]
+            check(len(results) == 3 and all(r.valid for r in results),
+                  f"{label}: not valid 3/3")
+            check(_build.LAUNCHES[kernel] > before,
+                  f"{label}: kernel {kernel} was not launched")
+            with open(csv) as f:
+                header = f.readline().rstrip("\n")
+            check(header == GROUPBY_LOCAL_HEADER,
+                  f"{label}: CSV header {header!r}")
+            print(f"dwarf {label}: valid 3/3 "
+                  f"host_time_ms={[r.host_time * 1e3 for r in results]!r} "
+                  f"group_by_time_ms="
+                  f"{[r.group_by_time * 1e3 for r in results]!r} "
+                  f"reduction_time_ms="
+                  f"{[r.reduction_time * 1e3 for r in results]!r}",
+                  flush=True)
+
+
+def constant_runs():
+    import contextlib
+    import io
+
+    from dwarf_bench_tpu_torch import cli, populate_registry
+
+    registry = populate_registry()
+    for name in CONSTANT_DWARFS:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([name, "--device=gpu", "--iterations=3"])
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("42")]
+        check(rc == 0 and lines == ["42 = 42"] * 3,
+              f"dwarf {name}: exit code {rc}, lines {lines!r}")
+        check(len(registry.find(name).get_results()) == 0,
+              f"dwarf {name}: recorded a result")
+        print(f"dwarf {name}: printed 42 = 42 three times", flush=True)
+
+
+def api_runs():
+    from dwarf_bench_tpu_torch import (
+        ApiDeviceType,
+        DwarfBench,
+        DwarfKind,
+        RunConfig,
+        populate_registry,
+    )
+
+    registry = populate_registry()
+    for kind, rows, impl in API_RUNS:
+        conf = RunConfig(device=ApiDeviceType.GPU, input_size=rows,
+                         iterations=3, dwarf=DwarfKind[kind])
+        ms = DwarfBench().make_measurements(conf)
+        results = [r.result for r in registry.find(impl).get_results()]
+        check(len(ms) == 3 and all(m.data_size == rows for m in ms),
+              f"API {kind} {rows}: measurements {ms!r}")
+        check(len(results) == 3 and all(r.valid for r in results),
+              f"API {kind} {rows}: {impl} not valid 3/3")
+        print(f"API {kind} {rows} ({impl}): valid 3/3 microseconds="
+              f"{[m.microseconds for m in ms]!r}", flush=True)
+
+
+def examples_in_process():
+    from dwarf_bench_tpu_torch.examples import lock_add, vadd
+
+    for name, example in (("vadd", vadd), ("lock_add", lock_add)):
+        check(example.main([]) == 0, f"example {name}: main returned non-0")
+
+
+def script_names(dev):
+    """Each measurement-script name once at its main's shape, held to its
+    plain version."""
+    from dwarf_bench_tpu_torch.common.datagen import make_random
+    from dwarf_bench_tpu_torch.ops import groupby_cuda, hist_cuda
+    from dwarf_bench_tpu_torch.ops import measure_variants as mv
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def same(label, got, exp):
+        check(torch.equal(got, exp), f"{label}: differs from its plain "
+                                     "version")
+
+    x22 = t(make_random(1 << 22, seed=1))
+    h128 = hist_cuda.histogram_plain(x22, 128)
+    same("histogram_16k_i8cmp", mv.histogram_16k_i8cmp(x22), h128)
+    same("hist16k_bf16cmp", mv.hist16k_bf16cmp(x22), h128)
+    same("hist_variant", mv.hist_variant(x22, 128, i16=True), h128)
+    same("hist_rows", mv.hist_rows(x22, 128, rows=32), h128)
+    same("hist_swar", mv.hist_swar(x22, 80, "f5"),
+         hist_cuda.histogram_plain(x22, 80))
+    idx = t(np.random.default_rng(0).integers(0, 64 * 128, 256))
+    same("dyn_store_probe", mv.dyn_store_probe(idx),
+         hist_cuda.histogram_plain(idx, 64).view(64, 128))
+    k16, v = t(make_random(1 << 20, 0, 65535, seed=5)), \
+        t(make_random(1 << 20, seed=6))
+    w512 = hist_cuda.weighted_histogram_plain(k16, v, 512)
+    same("weighted_histogram_i8", mv.weighted_histogram_i8(k16, v, 512), w512)
+    same("whist_i8", mv.whist_i8(k16, v, 512), w512)
+    gk, gv = t(make_random(1 << 22, 0, 63, seed=3)), \
+        t(make_random(1 << 22, seed=4))
+    g64 = groupby_cuda.groupby_small_plain(gk, gv, 64)
+    same("groupby_small_v2", mv.groupby_small_v2(gk, gv, 64), g64)
+    same("groupby_small_v3", mv.groupby_small_v3(gk, gv, 64, one_dot=True),
+         g64)
+    same("groupby_small_v5", mv.groupby_small_v5(gk, gv, 64, rows=32,
+                                                 w=4096), g64)
+    same("groupby_small_stacked", mv.groupby_small_stacked(gk, gv, 64), g64)
+    same("_gb_dbuf_kernel", mv._gb_dbuf_kernel()(gk, gv), g64)
+    for mode in mv.DIAG_MODES:
+        same(f"_gb_diag_kernel_factory {mode}",
+             mv._gb_diag_kernel_factory(mode)(gk, gv),
+             mv.gb_diag_plain(gk, gv, mode, 8, 8, 32, 4096))
+    print("measurement-script names: each equal to its plain version at its "
+          "main's shape", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1093,14 +1443,18 @@ def main() -> int:
     dwarf_launches = phase_dwarfs("gpu")
     t3 = time.perf_counter()
     library_launches = phase_library(dev)
+    t4 = time.perf_counter()
+    front_launches = phase_front_end(dev)
     print(f"phase seconds: kernels {t2 - t1!r}, dwarfs and ops "
-          f"{t3 - t2!r}, library paths {time.perf_counter() - t3!r}, "
-          f"whole script {time.perf_counter() - t0!r}", flush=True)
+          f"{t3 - t2!r}, library paths {t4 - t3!r}, front end "
+          f"{time.perf_counter() - t4!r}, whole script "
+          f"{time.perf_counter() - t0!r}", flush=True)
     launches = {name: dwarf_launches[name] + library_launches[name]
-                for name in KERNELS}
+                + front_launches[name] for name in KERNELS}
     for name in KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the "
-                                  "dwarfs or the library paths")
+                                  "dwarfs, the library paths or the front "
+                                  "end")
         check(stats[name]["ms"] is not None, f"kernel {name} was not timed")
 
     kernels = [

@@ -8,6 +8,14 @@ a CUDA kernel under ``csrc/``, built with nvcc at first use
 (``ops/_build.py``), with a plain PyTorch twin that CPU tensors take.
 """
 
+from .api import (
+    ApiDeviceType,
+    DwarfBench,
+    DwarfBenchException,
+    DwarfKind,
+    Measurement,
+    RunConfig,
+)
 from .common import (
     DeviceType,
     Dwarf,
@@ -20,6 +28,12 @@ from .dwarfs import populate_registry
 __version__ = "0.1.0"
 
 __all__ = [
+    "ApiDeviceType",
+    "DwarfBench",
+    "DwarfBenchException",
+    "DwarfKind",
+    "Measurement",
+    "RunConfig",
     "DeviceType",
     "Dwarf",
     "GroupByRunOptions",

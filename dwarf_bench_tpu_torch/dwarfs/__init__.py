@@ -1,14 +1,20 @@
 """Dwarf registration, the equivalent of register_dwarfs.cpp:20-56.
 
-Registry names match the reference. The ported dwarfs are registered in the
-relative order of ``dwarf_bench_tpu/dwarfs/__init__.py``; the ``*Cuda``
-names are pinned to the GPU and raise without CUDA.
+Registry names match the reference: all 24 dwarfs, registered in the order
+of ``dwarf_bench_tpu/dwarfs/__init__.py``. The ``*Cuda`` names are pinned to
+the GPU and raise without CUDA.
 """
 
 from __future__ import annotations
 
 from ..common.registry import Registry
-from .groupby import GroupBy, GroupByCuda
+from .constant import (
+    ConstantExample,
+    ConstantExampleCAPI,
+    ConstantExampleDPCPP,
+    ConstantExampleDPCPPCuda,
+)
+from .groupby import GroupBy, GroupByCuda, GroupByLocal
 from .hash_build import (
     CuckooHashBuild,
     HashBuild,
@@ -24,14 +30,18 @@ from .sort import Radix, RadixCuda, TBBSort
 _ALL_DWARFS = (
     # EXPERIMENTAL gate (register_dwarfs.cpp:22-26)
     TwoPassScan,
+    ConstantExample,
+    ConstantExampleCAPI,
     # always (register_dwarfs.cpp:28)
     TBBSort,
     # DPCPP_ENABLED gate (register_dwarfs.cpp:30-40)
+    ConstantExampleDPCPP,
     DPLScan,
     Radix,
     HashBuild,
     NestedLoopJoin,
     GroupBy,
+    GroupByLocal,
     Join,
     HashBuildNonBitmask,
     JoinOmnisci,
@@ -42,6 +52,7 @@ _ALL_DWARFS = (
     SlabJoin,
     SlabProbe,
     # CUDA_ENABLED gate (register_dwarfs.cpp:48-53)
+    ConstantExampleDPCPPCuda,
     DPLScanCuda,
     RadixCuda,
     JoinOmnisciCuda,

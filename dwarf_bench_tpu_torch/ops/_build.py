@@ -1,8 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels in ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, and loaded with
-ctypes. The library is cached under ``dwarf_bench_tpu_torch/build/`` (which
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+in parallel, and linked into one shared library with a plain C interface,
+at first use, and loaded with ctypes. The library is cached under ``dwarf_bench_tpu_torch/build/`` (which
 ``.gitignore`` covers through its ``build/`` line), named by a hash of the
 sources and the flags, so an edited source builds anew. A failed build
 raises; nothing falls back.
@@ -40,7 +40,7 @@ BUILD_DIR = _PKG / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -75,6 +75,12 @@ _SIGNATURES = {
     "dbt_merge_fill_scratch": ([_I64], _I64),
     "dbt_chunk_stats": ([_P, _I64, _I32, _P, _P, _P], ctypes.c_int),
     "dbt_probe_dense": ([_P, _P, _P, _I64, _I32, _P, _P, _P], ctypes.c_int),
+    "dbt_vadd": ([_P, _P, _P, _I64, _I32, _P], ctypes.c_int),
+    "dbt_lock_add": ([_P, _P, _I32, _P], ctypes.c_int),
+    "dbt_gb_diag": (
+        [_P, _P, _I64, _P, _I32, _I32, _I32, _I64, _I32, _P],
+        ctypes.c_int,
+    ),
     "dbt_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -103,6 +109,25 @@ LAUNCHES: Dict[str, int] = {
     "weighted_histogram_16k_pallas": 0,
     "groupby_small_swar_pallas": 0,
     "groupby_small_pallas_f32": 0,
+    # the examples' kernels (csrc/vadd.cu, csrc/lock_add.cu)
+    "vadd_pallas": 0,
+    "grid_accumulate": 0,
+    # the measurement scripts' names (ops/measure_variants.py), served by
+    # the kernels above or by csrc/gb_diag.cu
+    "histogram_16k_i8cmp": 0,
+    "hist16k_bf16cmp": 0,
+    "groupby_small_v2": 0,
+    "groupby_small_v3": 0,
+    "weighted_histogram_i8": 0,
+    "dyn_store_probe": 0,
+    "hist_variant": 0,
+    "whist_i8": 0,
+    "groupby_small_v5": 0,
+    "hist_rows": 0,
+    "hist_swar": 0,
+    "groupby_small_stacked": 0,
+    "_gb_diag_kernel_factory": 0,
+    "_gb_dbuf_kernel": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -140,29 +165,51 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise RuntimeError with the output of
+    each that failed. Every process is waited for or killed on return."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for cmd, proc in zip(cmds, procs):
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> pathlib.Path:
     """Compile csrc/*.cu into the cached library unless it exists; return
-    its path. Raises RuntimeError with nvcc's output if the build fails."""
+    its path. Each source compiles in its own nvcc process, all at once,
+    then one nvcc links them. Raises RuntimeError with nvcc's output if the
+    build fails."""
     global build_seconds
     target = BUILD_DIR / f"libdbt_kernels_{_digest()}.so"
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    units = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
     # build beside the target and rename, so a concurrent or interrupted
     # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *units]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, target)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        units = sorted(CSRC.glob("*.cu"))
+        objs = [os.path.join(tmp, f"{u.stem}.o") for u in units]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(u)]
+                  for u, o in zip(units, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, target)
     build_seconds = time.perf_counter() - t0
     return target
 

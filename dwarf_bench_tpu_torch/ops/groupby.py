@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from . import groupby_cuda, hist_cuda
-from .primitives import sort_by_key, wrap_i32
+from .primitives import as_u32, sort_by_key, wrap_i32
 
 
 def _hi_bins_for(num_groups: int) -> int:
@@ -89,6 +89,45 @@ def groupby_sum(
     if num_groups <= (1 << 16) and vals_below_2p14:
         return groupby_sum_2level(keys, vals, num_groups)
     return groupby_sum_sorted(keys, vals, num_groups)
+
+
+def groupby_partials(
+    keys: torch.Tensor, vals: torch.Tensor, num_groups: int, executors: int
+) -> torch.Tensor:
+    """Stage 1 of GroupByLocal (groupby_local.cpp:58-83): an
+    (executors, G) int32 of per-executor sums over contiguous row chunks of
+    ceil(n / executors) rows, keys outside [0, G) dropped, sums wrapping mod
+    2^32. The JAX package computes one-hot f32 matmuls in 1024-row tiles;
+    here each row's key is offset by ``executor * G`` and one group-by over
+    ``executors * G`` groups sums all chunks at once (the groupby_small
+    kernel up to 4096 partial groups, the weighted histogram up to 2^16).
+    The card's weighted-histogram kernel is exact for any value, so the
+    ``vals_below_2p14`` flag below only picks that route."""
+    num_groups, executors = int(num_groups), int(executors)
+    if num_groups < 1 or executors < 1:
+        raise ValueError(f"groupby_partials: G = {num_groups} and "
+                         f"executors = {executors} must be positive")
+    total = num_groups * executors
+    if total >= 2**31:
+        raise ValueError(f"groupby_partials: {total} partial groups "
+                         "exceed int32 keys")
+    n = keys.shape[0]
+    if n == 0:
+        return torch.zeros(executors, num_groups, dtype=torch.int32,
+                           device=keys.device)
+    per = -(-n // executors)
+    owner = torch.arange(n, device=keys.device) // per
+    ku = as_u32(keys)
+    flat = torch.where(ku < num_groups, owner * num_groups + ku, total)
+    sums = groupby_sum(flat.to(torch.int32), vals, total,
+                       vals_below_2p14=True)
+    return sums.view(executors, num_groups)
+
+
+def groupby_merge(partials: torch.Tensor) -> torch.Tensor:
+    """Stage 2 (groupby_local.cpp:87-112): the (G,) sum of the executors'
+    partials mod 2^32, as int32 bit patterns (uint32 in the JAX package)."""
+    return wrap_i32(partials.sum(0, dtype=torch.int64))
 
 
 def groupby_oracle(keys, vals, num_groups: int) -> np.ndarray:

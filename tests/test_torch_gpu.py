@@ -12,7 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from dwarf_bench_tpu_torch import cli, populate_registry
+from dwarf_bench_tpu_torch import (
+    ApiDeviceType,
+    DwarfBench,
+    DwarfKind,
+    RunConfig,
+    cli,
+    populate_registry,
+)
+from dwarf_bench_tpu_torch.examples import bench_usage, lock_add, vadd
 from dwarf_bench_tpu_torch.ops import (
     _build,
     bitonic_cuda,
@@ -23,14 +31,18 @@ from dwarf_bench_tpu_torch.ops import (
     cuckoo,
     cumsum_cuda,
     filter_cuda,
+    groupby,
     groupby_cuda,
     hist_cuda,
+    lock_add_cuda,
+    measure_variants,
     merge_fill_cuda,
     merge_lookup,
     probe_cuda,
     reduce_cuda,
     scan,
     scan_tail_cuda,
+    vadd_cuda,
 )
 from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
 
@@ -211,9 +223,26 @@ def test_wrappers_count_their_launches(cuda):
     chunk_stats_cuda.chunk_stats_plain(x2, 5)
     probe_cuda.probe_dense_plain(p3, p3[:128], k)
     groupby_cuda.groupby_digits_plain(k, k, 5000)
+    # the examples' kernels and the measurement scripts' names
+    vadd_cuda.vadd_pallas(k, k)
+    lock_add_cuda.grid_accumulate(3, device=cuda)
+    mv = measure_variants
+    for fn in (mv.histogram_16k_i8cmp, mv.hist16k_bf16cmp, mv.dyn_store_probe,
+               mv.hist_variant, mv.hist_rows, mv.hist_swar):  # + histogram
+        fn(k)
+    mv.weighted_histogram_i8(k, k)  # + weighted_histogram
+    mv.whist_i8(k, k)  # + weighted_histogram
+    for fn in (mv.groupby_small_v2, mv.groupby_small_v3, mv.groupby_small_v5,
+               mv.groupby_small_stacked):  # + groupby_small
+        fn(k, k, 64)
+    mv._gb_dbuf_kernel()(k, k)  # + groupby_small
+    mv._gb_diag_kernel_factory("nodot")(k, k)
+    vadd_cuda.vadd_plain(k, k)
+    lock_add_cuda.grid_accumulate_plain(3, device=cuda)
+    mv.gb_diag_plain(k, k, "full", 8, 8, 32, 4096)
     assert {n: _build.LAUNCHES[n] - before[n] for n in before} == {
-        "histogram": 2, "cumsum": 4, "groupby_small": 2,
-        "weighted_histogram": 4, "filter": 1, "compact_mask": 1,
+        "histogram": 8, "cumsum": 4, "groupby_small": 7,
+        "weighted_histogram": 6, "filter": 1, "compact_mask": 1,
         "emit_prefix": 1, "scan_tail_streams": 2, "merge_bitonic": 1,
         "merge_fill": 1, "reduce_sum": 1,
         "chunk_stats_pallas": 1, "chunk_stats_roll_pallas": 1,
@@ -222,6 +251,13 @@ def test_wrappers_count_their_launches(cuda):
         "histogram_16k_pallas": 1, "weighted_histogram_pallas": 2,
         "weighted_histogram_16k_pallas": 1, "groupby_small_swar_pallas": 1,
         "groupby_small_pallas_f32": 1,
+        "vadd_pallas": 1, "grid_accumulate": 1,
+        "histogram_16k_i8cmp": 1, "hist16k_bf16cmp": 1, "groupby_small_v2": 1,
+        "groupby_small_v3": 1, "weighted_histogram_i8": 1,
+        "dyn_store_probe": 1, "hist_variant": 1, "whist_i8": 1,
+        "groupby_small_v5": 1, "hist_rows": 1, "hist_swar": 1,
+        "groupby_small_stacked": 1, "_gb_diag_kernel_factory": 1,
+        "_gb_dbuf_kernel": 1,
     }
 
 
@@ -530,3 +566,141 @@ def test_dwarfs_run_through_the_kernels(cuda, tmp_path, dwarf, extra, kernels):
     lines = open(tmp_path / "r.csv").read().splitlines()
     assert lines[0] == "device_type,buf_size_bytes,host_time_ms,kernel_time_ms"
     assert all(line.startswith("GPU,") for line in lines[1:])
+
+
+# -- the library API, GroupByLocal, the Constant* dwarfs and the examples'
+#    and measurement scripts' kernels -------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("n", [1, 3, 1024, 4099, 1 << 24])
+def test_vadd(cuda, rng, dtype, n):
+    if dtype == torch.float32:
+        a = torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32))
+        b = torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32))
+    else:
+        a = _t(rng.integers(-(2**31), 2**31, n + 1), "cpu")
+        b = _t(rng.integers(-(2**31), 2**31, n + 1), "cpu")
+    a, b = a.to(cuda), b.to(cuda)
+    for x, y in ((a[:-1], b[:-1]), (a[1:], b[1:]), (a[1:], b[:-1])):
+        got = vadd_cuda.vadd_pallas(x, y)
+        exp = vadd_cuda.vadd_plain(x, y)
+        # bit for bit, through int32 views (a NaN is no NaN's equal)
+        assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+    m = a[:-1].view(-1, 1) if n > 1 else a[:1]
+    assert vadd_cuda.vadd_pallas(m, m).shape == m.shape
+
+
+@pytest.mark.parametrize("n_steps", [1, 2, 64, 1000, 1 << 16])
+def test_grid_accumulate(cuda, n_steps):
+    got = lock_add_cuda.grid_accumulate(n_steps)
+    assert got.is_cuda and got.shape == (1, 1)
+    assert torch.equal(got, lock_add_cuda.grid_accumulate_plain(n_steps,
+                                                                cuda))
+
+
+@pytest.mark.parametrize("n", [1, 4097, 1_000_003])
+def test_measure_variants(cuda, rng, n):
+    mv = measure_variants
+    for hb in (64, 80, 128):
+        k = _t(rng.integers(-100, hb * 128 + 100, n), cuda)
+        exp = hist_cuda.histogram_plain(k, hb)
+        assert torch.equal(mv.hist_variant(k, hb), exp)
+        assert torch.equal(mv.hist_rows(k, hb, rows=32), exp)
+        for form in mv.SWAR_FORMS:
+            assert torch.equal(mv.hist_swar(k, hb, form), exp)
+        if hb == 128:
+            assert torch.equal(mv.histogram_16k_i8cmp(k), exp)
+            assert torch.equal(mv.hist16k_bf16cmp(k), exp)
+        if hb == 64:
+            assert torch.equal(mv.dyn_store_probe(k), exp.view(64, 128))
+    v = _t(rng.integers(0, 2**32, n, dtype=np.uint64), cuda)
+    for hb in (64, 512):
+        k = _t(rng.integers(-3, hb * 128 + 3, n), cuda)
+        exp = hist_cuda.weighted_histogram_plain(k, v, hb)
+        assert torch.equal(mv.weighted_histogram_i8(k, v, hb), exp)
+        assert torch.equal(mv.whist_i8(k, v, hb), exp)
+    for g in (1, 64, 4096):
+        k = _t(rng.integers(-3, g + 300, n), cuda)
+        exp = groupby_cuda.groupby_small_plain(k, v, g)
+        for fn in (mv.groupby_small_v2, mv.groupby_small_v3,
+                   mv.groupby_small_v5, mv.groupby_small_stacked):
+            assert torch.equal(fn(k, v, g), exp)
+    k = _t(rng.integers(-3, 64 + 300, n), cuda)
+    assert torch.equal(mv._gb_dbuf_kernel()(k, v),
+                       groupby_cuda.groupby_small_plain(k, v, 64))
+
+
+@pytest.mark.parametrize("mode", ["full", "dotonly", "nodot"])
+@pytest.mark.parametrize("n,shape", [(1, (8, 8, 32, 4096)),
+                                     ((1 << 18) + 777, (8, 8, 32, 4096)),
+                                     (1 << 22, (8, 8, 32, 4096)),
+                                     (100_003, (4, 16, 3, 64)),
+                                     (100_003, (64, 64, 2, 128))])
+def test_gb_diag(cuda, rng, mode, n, shape):
+    ga, gb, rows, w = shape
+    if mode == "nodot" and ga > gb:
+        pytest.skip("nodot needs ga <= gb")
+    k = _t(rng.integers(-5, ga * gb + 5, n), cuda)
+    v = _t(rng.integers(-(2**31), 2**31, n), cuda)
+    got = measure_variants._gb_diag_kernel_factory(mode, ga, gb, rows, w)(k, v)
+    exp = measure_variants.gb_diag_plain(k, v, mode, ga, gb, rows, w)
+    assert got.shape == (ga, gb) and torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("groups,executors", [(64, 64), (20, 1024),
+                                              (4096, 1024), (16, 3)])
+def test_groupby_partials_on_cuda_matches_cpu(cuda, rng, groups, executors):
+    n = 1_000_003
+    k = _t(rng.integers(-3, groups + 3, n), cuda)
+    v = _t(rng.integers(1, 10001, n), cuda)
+    got = groupby.groupby_partials(k, v, groups, executors)
+    exp = groupby.groupby_partials(k.cpu(), v.cpu(), groups, executors)
+    assert torch.equal(got.cpu(), exp)
+    assert torch.equal(groupby.groupby_merge(got).cpu(),
+                       groupby.groupby_merge(exp))
+
+
+@pytest.mark.parametrize("extra,kernel", [
+    (["--groups_count=64", "--executors=64"], "groupby_small"),
+    (["--groups_count=20", "--executors=1024"], "weighted_histogram"),
+])
+def test_groupby_local_on_cuda(cuda, tmp_path, extra, kernel):
+    before = dict(_build.LAUNCHES)
+    rc = cli.main(["GroupByLocal", "--device=gpu", "--input_size", "1000",
+                   "1048576", "--iterations=2",
+                   f"--report_path={tmp_path / 'r.csv'}", *extra])
+    assert rc == 0
+    results = populate_registry().find("GroupByLocal").get_results()
+    assert len(results) == 4 and all(r.result.valid for r in results)
+    assert _build.LAUNCHES[kernel] > before[kernel]
+    lines = open(tmp_path / "r.csv").read().splitlines()
+    assert lines[0] == ("device_type,buf_size_bytes,total_time,"
+                        "group_by_time,reduction_time")
+
+
+@pytest.mark.parametrize("name", ["ConstantExample", "ConstantExampleCAPI",
+                                  "ConstantExampleDPCPP",
+                                  "ConstantExampleDPCPPCuda"])
+def test_constant_dwarfs_on_cuda(cuda, capsys, name):
+    assert cli.main([name, "--device=gpu", "--iterations=3"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert [line for line in out if line.startswith("42")] == ["42 = 42"] * 3
+    assert len(populate_registry().find(name).get_results()) == 0
+
+
+@pytest.mark.parametrize("kind", list(DwarfKind))
+def test_api_on_cuda(cuda, kind):
+    conf = RunConfig(device=ApiDeviceType.GPU, input_size=65536,
+                     iterations=2, dwarf=kind)
+    ms = DwarfBench().make_measurements(conf)
+    assert [m.data_size for m in ms] == [65536, 65536]
+    impl = {"Scan": "DPLScanCuda", "Join": "JoinOmnisciCuda",
+            "GroupBy": "GroupByCuda", "Sort": "RadixCuda"}[kind.name]
+    results = populate_registry().find(impl).get_results()
+    assert len(results) == 2 and all(r.result.valid for r in results)
+
+
+@pytest.mark.parametrize("example", [bench_usage, vadd, lock_add])
+def test_examples_on_cuda(cuda, example):
+    assert example.main([]) == 0
