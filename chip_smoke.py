@@ -12,10 +12,14 @@ with nvcc, then:
      PyTorch twin on the card, at the shapes the dwarfs and the library
      paths give it and on edge cases, and requires exact agreement (every
      output is an integer); prints both times, the time of one PyTorch
-     library call of the same function where there is one, and the bound
-     (the least time the card could take: bytes over 3.35 TB/s or
-     operations over 67 TOP/s, whichever is larger; for the lock kernel,
-     one assumed L2 round trip per serialized acquisition);
+     library call of the same function where there is one (CUDA events and
+     profiler device time), and the bound (the least time the card could
+     take: bytes over 3.35 TB/s or operations over 67 TOP/s, whichever is
+     larger; for the lock kernel, one assumed L2 round trip per serialized
+     acquisition); cumsum and weighted_histogram and their library calls
+     are also timed with the L2 flushed before each call; cumsum runs with
+     an int carry under CUDA's sync debug mode, and both under a
+     non-default stream;
   3. drives the dwarfs through the CLI entry point with ``--device=gpu``
      (Radix 2^22, GroupBy 2^22 with G=64, GroupBy 2^20 with G=2^16,
      JoinOmnisci 2^20, TwoPassScan, DPLScan and DPLScanCuda 2^24,
@@ -271,12 +275,14 @@ def phase_kernels(dev):
         vadd_cuda,
     )
     from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
+    from dwarf_bench_tpu_torch.utils.kernel_times import cold_ms
     from dwarf_bench_tpu_torch.utils.timing import kernel_time, sync
 
     rng = np.random.default_rng(20261016)
     stats = {name: {"max_abs_err": 0, "ms": None, "plain_ms": None,
                     "bound_ms": None, "bound_by": None, "library_ms": None,
-                    "device_ms": None}
+                    "device_ms": None, "library_device_ms": None,
+                    "cold_ms": None, "library_cold_ms": None}
              for name in KERNELS}
 
     def t(a):
@@ -286,13 +292,15 @@ def phase_kernels(dev):
         return [], [(res, res.numel())]
 
     def run(name, label, kernel, plain, *args, view=whole, timed=False,
-            cost=None, library=None):
+            cost=None, library=None, cold=False):
         """Kernel against twin on ``args``. ``view`` maps a result to
         (counts, [(tensor, slots that hold data)]): a compaction's output is
         garbage past its count, so only the twin's slots are compared. A
         timed case also times ``library(*args)``, the one PyTorch call of
-        the same function where there is one, and takes the bound from
-        ``cost(result) = (bytes, operations)``."""
+        the same function where there is one (events and device time), and
+        takes the bound from ``cost(result) = (bytes, operations)``; a
+        ``cold`` one also times kernel and library call with the L2 flushed
+        before each bracket (``kernel_times.cold_ms``)."""
         res = sync(kernel(*args))
         got_counts, got = view(res)
         exp_counts, exp = view(sync(plain(*args)))
@@ -311,17 +319,27 @@ def phase_kernels(dev):
         if timed:
             ms = kernel_time(kernel, *args, k=20) * 1e3
             plain_ms = kernel_time(plain, *args, k=20) * 1e3
-            lib_ms = None if library is None else \
-                kernel_time(library, *args, k=20) * 1e3
+            lib_ms = lib_dev_ms = None
+            if library is not None:
+                lib_ms = kernel_time(library, *args, k=20) * 1e3
+                lib_dev_ms = busy_ms(library, *args)
             dev_ms = busy_ms(kernel, *args)
+            cold_k = cold_lib = None
+            if cold:
+                cold_k = cold_ms(kernel, *args)
+                cold_lib = None if library is None else cold_ms(library, *args)
             bound_ms, bound_by = bound(*cost(res))
             if st["ms"] is None:
                 st.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          device_ms=dev_ms)
+                          device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                          cold_ms=cold_k, library_cold_ms=cold_lib)
             line += (f" kernel_ms={ms!r} device_ms={dev_ms!r} "
                      f"plain_ms={plain_ms!r} library_ms={lib_ms!r} "
+                     f"library_device_ms={lib_dev_ms!r} "
                      f"bound_ms={bound_ms!r} ({bound_by})")
+            if cold:
+                line += f" cold_ms={cold_k!r} library_cold_ms={cold_lib!r}"
         print(line, flush=True)
         check(err == 0, f"{name} [{label}]: kernel and plain twin differ "
                         f"(max_abs_err {err})")
@@ -364,9 +382,15 @@ def phase_kernels(dev):
     counts = np.bincount(radix_k, minlength=80 * 128)
     starts = np.cumsum(counts) - counts
     s = np.bincount(np.minimum(starts, n), minlength=n + 1)[:n]
+    def torch_cumsum(x, _):
+        return torch.cumsum(x, 0, dtype=torch.int32)
+
     run("cumsum", "radix expansion n=2^22", c, cp, t(s), -1, timed=True,
-        cost=lambda res: (4 * (2 * n + 1), n),
-        library=lambda x, _: torch.cumsum(x, 0, dtype=torch.int32))
+        cost=lambda res: (4 * (2 * n + 1), n), library=torch_cumsum,
+        cold=True)
+    run("cumsum", "radix expansion n=2^22, tensor carry", c, cp, t(s),
+        t([-1]), timed=True, cost=lambda res: (4 * (2 * n + 1), n),
+        library=torch_cumsum, cold=True)
     run("cumsum", "n=1", c, cp, t([7]), 0)
     run("cumsum", "n=1000003 random int32", c, cp,
         t(rng.integers(i32min, i32max, 1_000_003, endpoint=True)), 0)
@@ -376,6 +400,41 @@ def phase_kernels(dev):
         t(rng.integers(0, 1000, 70_001)), i32max - 5)
     run("cumsum", "carry_init tensor", c, cp,
         t(rng.integers(-5, 5, 9_999)), t([i32min + 3]))
+    tile = 8192  # values a block of csrc/cumsum.cu scans
+    for n_edge in (tile - 1, tile, tile + 1, (1 << 24) + 3):
+        x_edge = t(rng.integers(i32min, i32max, n_edge, endpoint=True))
+        for carry in (i32min, i32max):
+            run("cumsum", f"n={n_edge} int carry {carry}", c, cp, x_edge,
+                carry)
+            run("cumsum", f"n={n_edge} tensor carry {carry}", c, cp, x_edge,
+                t([carry]))
+    run("cumsum", "misaligned view", c, cp, x_edge[1:], 3)
+    side = torch.cuda.Stream(dev)
+    late_src = t(rng.integers(-1000, 1000, 1 << 20))
+
+    def on_side_stream(x, carry):
+        """The kernel under ``torch.cuda.stream(side)`` on a column written
+        on that stream behind a sleep: a launch on any other stream would
+        read it before it is written."""
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(20_000_000)
+            res = c(x + 0, carry)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return res
+
+    run("cumsum", "under a non-default stream", on_side_stream, cp, late_src,
+        -1)
+    x_dbg = t(s)
+    sync(c(x_dbg, -1))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_dbg = c(x_dbg, -1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(torch.equal(got_dbg, cp(x_dbg, -1)),
+          "cumsum int carry under sync debug mode: differs from its twin")
+    print("kernel cumsum [int carry under sync debug mode error]: no host "
+          "copy or sync, exact", flush=True)
 
     # -- groupby_small (G=64 at 2^22) -----------------------------------
     g, gp = groupby_cuda.groupby_small, groupby_cuda.groupby_small_plain
@@ -396,11 +455,36 @@ def phase_kernels(dev):
     # -- weighted_histogram (G=2^16 at 2^20; hi 256 and the hi < 256
     #    contract of weighted_histogram_i8_pallas) ----------------------
     w, wp = hist_cuda.weighted_histogram, hist_cuda.weighted_histogram_plain
+
+    def on_side_stream_w(k, v, hb):
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(20_000_000)
+            res = w(k + 0, v, hb)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return res
+
     big_k, big_v = (t(make_random(1 << 20, 0, 65535, seed=5)),
                     t(make_random(1 << 20, seed=6)))
     run("weighted_histogram", "hi512 n=2^20", w, wp, big_k, big_v, 512,
         timed=True, cost=keyed(1 << 20, 1 << 16, 2),
-        library=index_add(1 << 16))
+        library=index_add(1 << 16), cold=True)
+    run("weighted_histogram", "hi512 n=2^20, every row in one bin", w, wp,
+        t(np.full(1 << 20, 40_000)), big_v, 512, timed=True,
+        cost=keyed(1 << 20, 1 << 16, 2), library=index_add(1 << 16),
+        cold=True)
+    for hb in (1, 8, 64, 128, 256, 512):
+        run("weighted_histogram", f"hi{hb} n=1000003, out-of-range keys", w,
+            wp, t(rng.integers(-3, hb * 128 + 3, 1_000_003)),
+            t(rng.integers(i32min, i32max, 1_000_003, endpoint=True)), hb)
+    run("weighted_histogram", "hi512 n=100", w, wp,
+        t(rng.integers(0, 65536, 100)), t(rng.integers(1, 10000, 100)), 512)
+    run("weighted_histogram", "hi512, every key in one block's slice", w, wp,
+        t(rng.integers(4096, 8192, 1 << 20)), big_v, 512)
+    run("weighted_histogram", "hi512, every key out of range", w, wp,
+        t(rng.choice([-1, i32min, 65536, i32max], 1 << 20)), big_v, 512)
+    run("weighted_histogram", "hi512 under a non-default stream",
+        lambda k, v, hb: on_side_stream_w(k, v, hb), wp, late_src,
+        late_src, 512)
     run("weighted_histogram", "hi256 n=2^20", w, wp,
         t(rng.integers(-3, 256 * 128 + 99, 1 << 20)),
         t(rng.integers(1, 10000, 1 << 20)), 256)

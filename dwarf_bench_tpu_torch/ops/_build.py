@@ -23,6 +23,7 @@ names.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -51,9 +52,11 @@ _I64 = ctypes.c_int64
 # without argtypes ctypes would pass a Python int as a 32-bit C int.
 _SIGNATURES = {
     "dbt_histogram": ([_P, _I64, _P, _I32, _P], ctypes.c_int),
-    "dbt_weighted_histogram": ([_P, _P, _I64, _P, _I32, _P], ctypes.c_int),
+    "dbt_weighted_histogram": (
+        [_P, _P, _I64, _P, _I32, _I32, _I32, _P, _P], ctypes.c_int),
+    "dbt_weighted_histogram_max_clusters": ([_I32, _I32], ctypes.c_int),
     "dbt_groupby_small": ([_P, _P, _I64, _P, _I32, _P], ctypes.c_int),
-    "dbt_cumsum": ([_P, _I64, _P, _P, _P, _P], ctypes.c_int),
+    "dbt_cumsum": ([_P, _I64, _P, _I32, _P, _P, _P], ctypes.c_int),
     "dbt_cumsum_scratch": ([_I64], _I64),
     "dbt_compact_tiles": ([_I64], _I64),
     "dbt_filter": ([_P, _I64, _I32, _P, _I64, _P, _P, _P], ctypes.c_int),
@@ -229,18 +232,50 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call the C entry point ``name`` on ``device``'s current stream (the
-    stream is appended to ``args``) and raise if it reports an error."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, name)(*args, stream)
+    raw stream handle is appended to ``args``) and raise if it reports an
+    error. The stream is looked up on every call, so a caller's
+    ``torch.cuda.stream(s)`` is honoured; the current device is switched
+    only when it is not ``device`` already."""
+    fn = getattr(library(), name)
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        msg = lib.dbt_error_string(rc).decode()
+        msg = _lib.dbt_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
-def scratch_words(n: int) -> int:
-    return int(library().dbt_cumsum_scratch(n))
+@functools.lru_cache(maxsize=256)
+def cumsum_scratch_words(n: int) -> int:
+    """int32 scratch words of ``dbt_cumsum`` for ``n`` values (at least
+    one)."""
+    return max(int(library().dbt_cumsum_scratch(n)), 1)
+
+
+_STREAM_SCRATCH: Dict[tuple, torch.Tensor] = {}
+
+
+def stream_scratch(kind: str, device: torch.device, words: int) -> torch.Tensor:
+    """A lasting int32 buffer of at least ``words`` words for the kernel
+    ``kind`` on ``device``'s current stream, zero when first made. Work on
+    one stream runs in order, so a call never overlaps the last call that
+    used the buffer; each stream has its own. It saves a torch.empty, and
+    its host time, a call; a kernel that needs it zero must leave it zero
+    (``dbt_cumsum`` does)."""
+    index = device.index
+    key = (kind, index, torch._C._cuda_getCurrentRawStream(index))
+    buf = _STREAM_SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        old = 0 if buf is None else buf.numel()
+        buf = torch.zeros(max(words, 2 * old), dtype=torch.int32,
+                          device=device)
+        _STREAM_SCRATCH[key] = buf
+    return buf
 
 
 def compact_scratch(n: int, streams: int, device: torch.device) -> torch.Tensor:

@@ -55,9 +55,8 @@ def _stats(op: str, x2: torch.Tensor, threshold):
     _build.launch("dbt_chunk_stats", device, x2.data_ptr(), nch, thr,
                   stat.data_ptr(), cnt.data_ptr())
     _build.LAUNCHES[op] += 1
-    # a device-resident carry: no host-to-device copy on this path
-    zero = torch.zeros(1, dtype=torch.int32, device=device)
-    return stat, cumsum_cuda.cumsum(cnt, zero) - cnt
+    # the int carry goes by value: no host-to-device copy on this path
+    return stat, cumsum_cuda.cumsum(cnt, 0) - cnt
 
 
 def chunk_stats_pallas(x2: torch.Tensor, threshold: int):

@@ -10,6 +10,9 @@ above hi_bins·128 (negatives, EMPTY, padding) counts nowhere.
 (hi_bins 256 and 512) and ``weighted_histogram_i8_pallas`` (hi_bins below
 256): (hi_bins·128,) int32 sums of v per bin, wrapping mod 2^32, with
 out-of-range keys dropped. The card's kernel has no v < 2^14 precondition.
+It keeps each copy of the bins in the shared memory of one block or of a
+cluster of blocks; ``weighted_plan`` chooses the cluster size and the number
+of copies.
 
 ``histogram_16k_pallas`` (hist_pallas.py:40, hi_bins <= 128) and
 ``weighted_histogram_pallas`` (:279, hi_bins <= 512, with its 2^14-bin alias
@@ -23,6 +26,8 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from . import _build
@@ -30,6 +35,23 @@ from .primitives import as_u32, wrap_i32
 
 MAX_HIST_HI_BINS = 128  # 2^14 bins: 64 KB of shared memory per block
 MAX_WEIGHTED_HI_BINS = 512  # 2^16 bins, the G = 2^16 group-by
+
+# The weighted histogram's launch plan (csrc/hist.cu). A cluster of
+# ``cluster`` blocks holds one copy of the bins, nbins / cluster in each
+# block's shared memory; ``copies`` clusters each take a share of the rows,
+# and a second kernel adds their copies. Chosen by the plan sweep of
+# ``utils/kernel_times.py --sweep`` on an H100 (PERF.md): a row added into
+# another block's shared memory costs several times one added into the
+# block's own, so one block holds the bins whenever they fit
+# (CLUSTER1_MAX_BINS, 128 KB), and the 2^16 bins of the G = 2^16 group-by
+# take a cluster of 16 (16 KB a block).
+CLUSTER1_MAX_BINS = 32768
+# The copies are written and read once, so copies * nbins <= max(nbins, n)
+# keeps them within 8 bytes a row, beside the 8 bytes a row of keys and
+# values; more copies than MAX_COPIES cost the second kernel more than they
+# save.
+MAX_COPIES = 64
+MAX_WEIGHTED_BLOCKS = 256
 
 
 def _check_hi_bins(op: str, hi_bins: int, most: int) -> int:
@@ -68,6 +90,24 @@ def weighted_histogram_plain(
     return wrap_i32(out)
 
 
+def copy_bins_limit(n: int, nbins: int) -> int:
+    """The most bins that the copies of a weighted histogram of ``n`` rows
+    may hold together."""
+    return max(nbins, n)
+
+
+def weighted_plan(hi_bins: int, n: int) -> Tuple[int, int]:
+    """(cluster, copies) of the weighted histogram of ``n`` rows into
+    hi_bins·128 bins: one block when it holds the bins, else a cluster of
+    16, and as many copies as ``copy_bins_limit``, MAX_COPIES and
+    MAX_WEIGHTED_BLOCKS allow, at least one."""
+    nbins = hi_bins * 128
+    cluster = 1 if nbins <= CLUSTER1_MAX_BINS else 16
+    copies = min(copy_bins_limit(n, nbins) // nbins, MAX_COPIES,
+                 MAX_WEIGHTED_BLOCKS // cluster)
+    return cluster, max(copies, 1)
+
+
 def weighted_histogram(
     k: torch.Tensor, v: torch.Tensor, hi_bins: int = 512
 ) -> torch.Tensor:
@@ -79,9 +119,20 @@ def weighted_histogram(
         )
     if device.type == "cpu":
         return weighted_histogram_plain(k, v, hi_bins)
-    out = torch.zeros(nbins, dtype=torch.int32, device=device)
-    _build.launch("dbt_weighted_histogram", device, k.data_ptr(),
-                  v.data_ptr(), k.numel(), out.data_ptr(), nbins)
+    return launch_weighted(k, v, nbins, *weighted_plan(hi_bins, k.numel()))
+
+
+def launch_weighted(k: torch.Tensor, v: torch.Tensor, nbins: int,
+                    cluster: int, copies: int) -> torch.Tensor:
+    """The weighted-histogram kernel on checked CUDA vectors under an
+    explicit plan (``weighted_plan`` gives the wrapper's)."""
+    out = torch.empty(nbins, dtype=torch.int32, device=k.device)
+    # every copy is written in full before it is read
+    scratch = None if copies == 1 else _build.stream_scratch(
+        "weighted_histogram", k.device, copies * nbins)
+    _build.launch("dbt_weighted_histogram", k.device, k.data_ptr(),
+                  v.data_ptr(), k.numel(), out.data_ptr(), nbins, cluster,
+                  copies, None if scratch is None else scratch.data_ptr())
     _build.LAUNCHES["weighted_histogram"] += 1
     return out
 

@@ -11,6 +11,7 @@ from dwarf_bench_tpu.ops.cumsum_pallas import cumsum_pallas
 from dwarf_bench_tpu.ops.sort import _expand_runs as jax_expand_runs
 from dwarf_bench_tpu.ops.sort import histogram_16k
 from dwarf_bench_tpu_torch.ops import cumsum_cuda
+from dwarf_bench_tpu_torch.ops.primitives import wrap_i32
 from dwarf_bench_tpu_torch.ops.sort import _expand_runs
 
 
@@ -82,3 +83,22 @@ def test_rejects_bad_carry():
     with pytest.raises(ValueError):
         cumsum_cuda.cumsum(x, torch.zeros(1, dtype=torch.int64))
 
+
+
+@pytest.mark.parametrize("carry", [-(2**31), 2**31 - 1, 2**32 + 5, -1, 0,
+                                   -(2**33) - 7])
+def test_int_carry_packs_like_wrap_i32(carry):
+    """An int carry goes to the kernel by value, wrapped on the host to the
+    int32 that ``wrap_i32`` (the plain version's carry) gives."""
+    tensor, value = cumsum_cuda.pack_carry(carry, torch.device("cpu"))
+    assert tensor is None
+    exp = wrap_i32(torch.tensor([carry], dtype=torch.int64))
+    assert value == int(exp[0])
+    assert -(2**31) <= value < 2**31
+
+
+def test_tensor_carry_packs_as_a_tensor():
+    carry = _t([-(2**31)])
+    tensor, value = cumsum_cuda.pack_carry(carry, carry.device)
+    assert tensor is not None and tensor.data_ptr() == carry.data_ptr()
+    assert value == 0

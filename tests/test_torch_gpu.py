@@ -91,6 +91,105 @@ def test_cumsum(cuda, rng, n):
                            cumsum_cuda.cumsum_plain(x, carry))
 
 
+CUMSUM_TILE = 8192  # values a block of csrc/cumsum.cu scans
+I32_EDGES = (-(2**31), 2**31 - 1)
+
+
+@pytest.mark.parametrize("n", [CUMSUM_TILE - 1, CUMSUM_TILE, CUMSUM_TILE + 1,
+                               33 * CUMSUM_TILE + 5, (1 << 24) + 3])
+def test_cumsum_tile_boundaries(cuda, rng, n):
+    x = _t(rng.integers(-(2**31), 2**31, n), cuda)
+    for carry in I32_EDGES + tuple(_t([c], cuda) for c in I32_EDGES):
+        assert torch.equal(cumsum_cuda.cumsum(x, carry),
+                           cumsum_cuda.cumsum_plain(x, carry))
+    # a view that is not 16-byte aligned takes the scalar loads
+    assert torch.equal(cumsum_cuda.cumsum(x[1:], 5),
+                       cumsum_cuda.cumsum_plain(x[1:], 5))
+
+
+def _late_input(n, rng, device):
+    """A column written on the current stream behind a sleep of a few ms: a
+    kernel launched on another stream would read it before it is written."""
+    src = _t(rng.integers(-1000, 1000, n), device)
+    torch.cuda._sleep(20_000_000)
+    return src + 0, src
+
+
+def test_cumsum_runs_on_the_current_stream(cuda, rng):
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        x, src = _late_input(1 << 20, rng, cuda)
+        got = cumsum_cuda.cumsum(x, 7)
+    side.synchronize()
+    assert torch.equal(got, cumsum_cuda.cumsum_plain(src, 7))
+
+
+def test_cumsum_int_carry_makes_no_host_copy(cuda, rng):
+    x = _t(rng.integers(-5, 5, 1 << 20), cuda)
+    cumsum_cuda.cumsum(x, -1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = cumsum_cuda.cumsum(x, -1)
+        got_max = cumsum_cuda.cumsum(x, 2**31 - 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, cumsum_cuda.cumsum_plain(x, -1))
+    assert torch.equal(got_max, cumsum_cuda.cumsum_plain(x, 2**31 - 1))
+
+
+@pytest.mark.parametrize("hi_bins", [1, 8, 64, 80, 128, 160, 256, 512])
+@pytest.mark.parametrize("n", [1, 100, 1 << 20])
+def test_weighted_histogram_plans(cuda, rng, hi_bins, n):
+    """The wrapper's own plan (cluster 1, 8 or 16; one copy or many) at
+    every width the dwarfs and the scripts use."""
+    k = _t(rng.integers(-3, hi_bins * 128 + 3, n), cuda)
+    v = _t(rng.integers(0, 2**32, n, dtype=np.uint64), cuda)
+    assert torch.equal(hist_cuda.weighted_histogram(k, v, hi_bins),
+                       hist_cuda.weighted_histogram_plain(k, v, hi_bins))
+
+
+@pytest.mark.parametrize("hi_bins,cluster", [(128, 1), (128, 8), (128, 16),
+                                             (256, 8), (512, 8), (512, 16)])
+@pytest.mark.parametrize("copies", [1, 3, 16])
+def test_weighted_histogram_explicit_plans(cuda, rng, hi_bins, cluster,
+                                           copies):
+    n = 300_007
+    nbins = hi_bins * 128
+    k = _t(rng.integers(-3, nbins + 3, n), cuda)
+    v = _t(rng.integers(0, 2**32, n, dtype=np.uint64), cuda)
+    got = hist_cuda.launch_weighted(k, v, nbins, cluster, copies)
+    assert torch.equal(got, hist_cuda.weighted_histogram_plain(k, v, hi_bins))
+    # misaligned views take the scalar loads
+    got = hist_cuda.launch_weighted(k[1:], v[1:], nbins, cluster, copies)
+    assert torch.equal(got, hist_cuda.weighted_histogram_plain(
+        k[1:], v[1:], hi_bins))
+
+
+@pytest.mark.parametrize("case", ["one bin", "one block's slice",
+                                  "out of range"])
+def test_weighted_histogram_skew(cuda, rng, case):
+    n = 1 << 20
+    keys = {"one bin": np.full(n, 40_000),
+            "one block's slice": rng.integers(4096, 8192, n),
+            "out of range": rng.choice([-1, -(2**31), 65536, 2**31 - 1], n)}
+    k = _t(keys[case], cuda)
+    v = _t(rng.integers(0, 2**32, n, dtype=np.uint64), cuda)
+    assert torch.equal(hist_cuda.weighted_histogram(k, v, 512),
+                       hist_cuda.weighted_histogram_plain(k, v, 512))
+
+
+def test_weighted_histogram_runs_on_the_current_stream(cuda, rng):
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        k, src = _late_input(1 << 20, rng, cuda)
+        got = hist_cuda.weighted_histogram(k, k, 512)
+    side.synchronize()
+    assert torch.equal(got, hist_cuda.weighted_histogram_plain(src, src, 512))
+
+
 @pytest.mark.parametrize("num_groups", [1, 64, 4096])
 def test_groupby_small(cuda, rng, num_groups):
     n = 1_000_003

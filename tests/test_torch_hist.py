@@ -105,3 +105,33 @@ def test_wrappers_reject_bad_input(bad):
     with pytest.raises(ValueError):
         bad()
 
+
+
+@pytest.mark.parametrize("hi_bins", [1, 8, 64, 80, 128, 129, 160, 256, 257,
+                                     511, 512])
+@pytest.mark.parametrize("n", [0, 1, 100, 1000, 1 << 16, 1_000_003, 1 << 20,
+                               1 << 22, 1 << 24])
+def test_weighted_plan(hi_bins, n):
+    """The weighted histogram's plan: a cluster of 1, 8 or 16 blocks whose
+    shared memory holds the bins (128 KB a block at most), that divides the
+    bins evenly, one block whenever it holds them, and copies that hold at
+    most ``copy_bins_limit`` bins together (no more than the rows), within
+    the copy and block budgets."""
+    nbins = hi_bins * 128
+    cluster, copies = hist_cuda.weighted_plan(hi_bins, n)
+    assert cluster in (1, 8, 16)
+    assert nbins % cluster == 0 and nbins // cluster * 4 <= 128 * 1024
+    assert (cluster == 1) == (nbins <= hist_cuda.CLUSTER1_MAX_BINS)
+    assert 1 <= copies <= hist_cuda.MAX_COPIES
+    assert copies * nbins <= hist_cuda.copy_bins_limit(n, nbins)
+    assert copies * cluster <= hist_cuda.MAX_WEIGHTED_BLOCKS
+    assert hist_cuda.copy_bins_limit(n, nbins) <= max(nbins, n)
+
+
+def test_weighted_plan_grows_with_rows():
+    """More rows never mean fewer copies, and the main path's G = 2^16 at
+    2^20 rows gets 16 copies of a 16-block cluster (the sweep's best)."""
+    for hb in (1, 128, 160, 512):
+        copies = [hist_cuda.weighted_plan(hb, 1 << e)[1] for e in range(25)]
+        assert copies == sorted(copies)
+    assert hist_cuda.weighted_plan(512, 1 << 20) == (16, 16)

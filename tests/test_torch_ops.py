@@ -92,6 +92,30 @@ def test_groupby_2level_and_sorted_agree(rng, G):
     assert np.array_equal(_u32(groupby.groupby_sum_sorted(_t(k), _t(v), G)), exp)
 
 
+@pytest.mark.parametrize("keys,vals,jax_out,port_out", [
+    ([0xFFFFFFFE, 1], [5, 7], [0, 7, 0, 0, 0, 0, 0, 5],
+     [0, 7, 0, 0, 0, 0, 0, 0]),
+    ([-9 & 0xFFFFFFFF, 3, 3], [5, 7, 11], [5, 0, 0, 18, 0, 0, 0, 0],
+     [0, 0, 0, 18, 0, 0, 0, 0]),
+])
+def test_groupby_sorted_drops_keys_outside_range(keys, vals, jax_out,
+                                                 port_out):
+    """A deliberate difference: jnp ``.at[]`` wraps a negative key -k into
+    group G + 1 - k before ``mode="drop"`` applies, so the JAX
+    ``groupby_sum_sorted`` adds it there; the port drops every key outside
+    [0, G), as every other group-by engine of both packages does. Both
+    outputs are recorded, so a change on either side shows."""
+    k = np.array(keys, np.uint32)
+    v = np.array(vals, np.uint32)
+    ref = np.asarray(jgroupby.groupby_sum_sorted(jnp.asarray(k),
+                                                 jnp.asarray(v), 8))
+    assert ref.tolist() == jax_out
+    got = _u32(groupby.groupby_sum_sorted(_t(k), _t(v), 8))
+    assert got.tolist() == port_out
+    keep = k < 8
+    assert np.array_equal(got, jgroupby.groupby_oracle(k[keep], v[keep], 8))
+
+
 # -- dense CSR join -------------------------------------------------------
 
 def _a_keys(rng, n, empty):
