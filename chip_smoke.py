@@ -19,7 +19,12 @@ with nvcc, then:
      acquisition); cumsum and weighted_histogram and their library calls
      are also timed with the L2 flushed before each call; cumsum runs with
      an int carry under CUDA's sync debug mode, and both under a
-     non-default stream;
+     non-default stream; merge_bitonic at every N = 2^k up to 2^22 (2 and
+     4 columns, num_cmp 1 and 2); reduce_sum three times back to back on
+     one stream and on two streams at once; the CUDA kernels and memsets
+     one call puts on the card, read from torch.profiler, must be one a
+     pass of the plan for merge_bitonic at 2^25 (3) and one kernel and no
+     memset for reduce_sum;
   3. drives the dwarfs through the CLI entry point with ``--device=gpu``
      (Radix 2^22, GroupBy 2^22 with G=64, GroupBy 2^20 with G=2^16,
      JoinOmnisci 2^20, TwoPassScan, DPLScan and DPLScanCuda 2^24,
@@ -275,7 +280,7 @@ def phase_kernels(dev):
         vadd_cuda,
     )
     from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
-    from dwarf_bench_tpu_torch.utils.kernel_times import cold_ms
+    from dwarf_bench_tpu_torch.utils.kernel_times import cold_ms, device_ops
     from dwarf_bench_tpu_torch.utils.timing import kernel_time, sync
 
     rng = np.random.default_rng(20261016)
@@ -657,6 +662,15 @@ def phase_kernels(dev):
     del packed16
     run("merge_bitonic", "N=2^25 x 3 cols (val32)", mb, mbp, in32, 2,
         view=columns, timed=True, cost=network_cost)
+    # one kernel a pass of the plan, 3 at 2^25 (15 before the tiled passes)
+    for label, cols in (("2 cols", in16), ("3 cols", in32)):
+        plan = bitonic_cuda.merge_plan(1 << 25, len(cols))
+        ops = device_ops(mb, cols, 2)
+        print(f"kernel merge_bitonic [N=2^25 x {label}]: kernels per call "
+              f"{ops[0]!r}, memsets {ops[1]!r}, plan {plan}", flush=True)
+        check(ops == (len(plan.passes), 0) and len(plan.passes) == 3,
+              f"merge_bitonic at 2^25 x {label}: {ops} kernels and memsets "
+              f"a call, expected 3 and 0")
 
     def bitonic(n, ncols, key_hi):
         """(key, aux) ascending then descending, ties included."""
@@ -680,6 +694,14 @@ def phase_kernels(dev):
         bitonic(1 << 20, 4, 2**32), 2, view=columns)
     run("merge_bitonic", "N=2^20 x 4 cols, num_cmp=1, ties", mb, mbp,
         bitonic(1 << 20, 4, 1000), 1, view=columns)
+    # every N = 2^k up to 2^22 meets every pass boundary of the plan
+    for k in range(23):
+        for ncols in (2, 4):
+            cols = bitonic(1 << k, ncols, 1 << 12)
+            for num_cmp in (1, 2):
+                run("merge_bitonic", f"N=2^{k} x {ncols} cols, "
+                    f"num_cmp={num_cmp}", mb, mbp, cols, num_cmp,
+                    view=columns)
 
     mf, mfp = merge_fill_cuda.merge_fill, merge_fill_cuda.merge_fill_plain
     m16, m32, mm = (mb(c, 2) for c in (in16, in32, inm))
@@ -722,6 +744,38 @@ def phase_kernels(dev):
     run("reduce_sum", "n=1000003 random int32", r, rp, wide[:-1],
         view=scalar)
     run("reduce_sum", "misaligned start", r, rp, wide[1:], view=scalar)
+    big = t(make_random(1 << 24, seed=10))
+    ops = device_ops(r, big)
+    print(f"kernel reduce_sum [n=2^24]: kernels per call {ops[0]!r}, "
+          f"memsets {ops[1]!r}", flush=True)
+    check(ops == (1, 0), f"reduce_sum: {ops} kernels and memsets a call, "
+                         "expected 1 and 0")
+    got = r(big)
+    check(got.shape == () and got._base is None,
+          f"reduce_sum: {tuple(got.shape)} result, base {got._base is None}")
+    # three calls back to back on one stream: the third finds the ticket the
+    # second left at 0; then two streams at once, each with its own scratch
+    exp = int(rp(big))
+    sums = [r(big), r(wide[:-1]), r(big)]
+    check([int(v) for v in sums] == [exp, int(rp(wide[:-1])), exp],
+          "reduce_sum: back-to-back calls on one stream differ from the twin")
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    xs = (big, wide[1:])
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for rep in range(3):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                if rep == 0:
+                    torch.cuda._sleep(5_000_000)
+                outs[i].append(r(xs[i]))
+    torch.cuda.synchronize()
+    for i, x in enumerate(xs):
+        check([int(v) for v in outs[i]] == [int(rp(x))] * 3,
+              f"reduce_sum on stream {i} differs from the twin")
+    print("kernel reduce_sum [back to back x 3, two streams x 3]: "
+          "max_abs_err=0", flush=True)
+    del big
 
     # -- the JAX names of this slice: the chunk-stats kernel under its
     #    three names (the scan at 2^24, x < 5) ---------------------------

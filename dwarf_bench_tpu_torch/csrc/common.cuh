@@ -8,15 +8,53 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace dbt {
 
-// Streaming multiprocessors of the current device (132 on an H100 SXM).
+constexpr int kMaxDevices = 64;
+
+// Streaming multiprocessors of the current device (132 on an H100 SXM). The
+// attribute query costs host time, so it is asked once a device and kept.
 inline int num_sms() {
+  static std::atomic<int> known[kMaxDevices];
   int dev = 0;
-  int sms = 0;
   cudaGetDevice(&dev);
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  int sms = cached ? known[dev].load(std::memory_order_relaxed) : 0;
+  if (sms > 0) return sms;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms > 0 ? sms : 1;
+  sms = sms > 0 ? sms : 1;
+  if (cached) known[dev].store(sms, std::memory_order_relaxed);
+  return sms;
+}
+
+// Lets `kernel` take up to the device's opt-in shared memory a block and,
+// when `cluster`, clusters above the portable 8 blocks. The attribute calls
+// cost host time, so each device is configured once and marked in `done`; a
+// failure is returned and the next call tries again.
+template <typename Kernel>
+cudaError_t configure(Kernel kernel, bool cluster,
+                      std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const uint64_t bit = 1ull << (dev & 63);
+  if (err != cudaSuccess || (done.load(std::memory_order_acquire) & bit)) {
+    return err;
+  }
+  int most = 0;
+  err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  }
+  if (err == cudaSuccess && cluster) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 // Grid for a grid-stride loop over n elements: enough blocks to cover n,

@@ -49,8 +49,6 @@
 // stays.)
 #include <cooperative_groups.h>
 
-#include <atomic>
-
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -201,34 +199,6 @@ __global__ void sum_copies(const uint4* __restrict__ copies, int ncopies,
   out[q] = s;
 }
 
-// Lets `kernel` take up to the device's opt-in shared memory a block and, for
-// the cluster kernel, clusters above the portable 8 blocks. The attribute
-// calls cost host time, so each device is configured once and marked in
-// `done`; a failure is returned and the next call tries again.
-template <typename Kernel>
-cudaError_t configure(Kernel kernel, bool cluster,
-                      std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  const uint64_t bit = 1ull << (dev & 63);
-  if (err != cudaSuccess || (done.load(std::memory_order_acquire) & bit)) {
-    return err;
-  }
-  int most = 0;
-  err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-  }
-  if (err == cudaSuccess && cluster) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
 std::atomic<uint64_t> histogram_ready{0};
 std::atomic<uint64_t> weighted_ready{0};
 std::atomic<uint64_t> weighted_cluster_ready{0};
@@ -257,7 +227,7 @@ cudaLaunchConfig_t cluster_config(int blocks, int cluster, int smem,
 extern "C" int dbt_histogram(const int32_t* keys, int64_t n, int32_t* out,
                              int32_t nbins, void* stream) {
   const int smem = nbins * static_cast<int>(sizeof(uint32_t));
-  cudaError_t err = configure(histogram_kernel, false, histogram_ready);
+  cudaError_t err = dbt::configure(histogram_kernel, false, histogram_ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = dbt::grid_for(n, kHistThreads, 1);
   histogram_kernel<<<grid, kHistThreads, smem,
@@ -283,12 +253,13 @@ extern "C" int dbt_weighted_histogram(const int32_t* keys, const int32_t* vals,
                      reinterpret_cast<uintptr_t>(vals)) & 15) == 0;
   cudaError_t err;
   if (cluster == 1) {
-    err = configure(weighted_histogram_kernel<false>, false, weighted_ready);
+    err = dbt::configure(weighted_histogram_kernel<false>, false,
+                         weighted_ready);
     if (err != cudaSuccess) return static_cast<int>(err);
     weighted_histogram_kernel<false><<<copies, kWeightedThreads, smem, s>>>(
         keys, vals, n, static_cast<uint32_t>(nbins), per_block, dst, vec);
   } else {
-    err = configure(weighted_histogram_kernel<true>, true,
+    err = dbt::configure(weighted_histogram_kernel<true>, true,
                     weighted_cluster_ready);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchAttribute attr;
@@ -314,7 +285,7 @@ extern "C" int dbt_weighted_histogram(const int32_t* keys, const int32_t* vals,
 extern "C" int dbt_weighted_histogram_max_clusters(int32_t nbins,
                                                    int32_t cluster) {
   const int smem = nbins / cluster * static_cast<int>(sizeof(uint32_t));
-  cudaError_t err = configure(weighted_histogram_kernel<true>, true,
+  cudaError_t err = dbt::configure(weighted_histogram_kernel<true>, true,
                               weighted_cluster_ready);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchAttribute attr;

@@ -69,8 +69,9 @@ _SIGNATURES = {
         [_P, _P, _I64, _I32, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
         ctypes.c_int,
     ),
-    "dbt_reduce_sum": ([_P, _I64, _P, _P], ctypes.c_int),
-    "dbt_merge_bitonic": ([_P] * 8 + [_I32, _I64, _I32, _P], ctypes.c_int),
+    "dbt_reduce_sum": ([_P, _I64, _P, _P, _I32, _P], ctypes.c_int),
+    "dbt_merge_bitonic": (
+        [_P] * 8 + [_I32, _I64, _I32, _I32, _I32, _P, _P], ctypes.c_int),
     "dbt_merge_fill": (
         [_P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P],
         ctypes.c_int,
@@ -266,7 +267,7 @@ def stream_scratch(kind: str, device: torch.device, words: int) -> torch.Tensor:
     one stream runs in order, so a call never overlaps the last call that
     used the buffer; each stream has its own. It saves a torch.empty, and
     its host time, a call; a kernel that needs it zero must leave it zero
-    (``dbt_cumsum`` does)."""
+    (``dbt_cumsum`` does, and ``dbt_reduce_sum`` its ticket)."""
     index = device.index
     key = (kind, index, torch._C._cuda_getCurrentRawStream(index))
     buf = _STREAM_SCRATCH.get(key)

@@ -15,6 +15,11 @@ import torch
 from . import _build
 from .primitives import wrap_i32
 
+# The kernel's scratch (one lasting buffer a stream): a ticket word, then one
+# word a block; 1024 blocks is more than a wave of csrc/reduce.cu on any card
+# of up to 256 SMs. The kernel leaves the ticket 0, as it finds it.
+SCRATCH_WORDS = 1 + 1024
+
 
 def reduce_sum_plain(x: torch.Tensor) -> torch.Tensor:
     _build.check_vectors("reduce_sum", x)
@@ -25,8 +30,11 @@ def reduce_sum(x: torch.Tensor) -> torch.Tensor:
     device = _build.check_vectors("reduce_sum", x)
     if device.type == "cpu":
         return reduce_sum_plain(x)
-    out = torch.empty(1, dtype=torch.int32, device=device)
+    # a 0-d int32 tensor of its own on x's card; new_empty costs less host
+    # time than torch.empty (PERF.md §6)
+    out = x.new_empty(())
+    scratch = _build.stream_scratch("reduce_sum", device, SCRATCH_WORDS)
     _build.launch("dbt_reduce_sum", device, x.data_ptr(), x.numel(),
-                  out.data_ptr())
+                  out.data_ptr(), scratch.data_ptr(), scratch.numel())
     _build.LAUNCHES["reduce_sum"] += 1
-    return out[0]
+    return out

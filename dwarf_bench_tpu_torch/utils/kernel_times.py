@@ -1,5 +1,5 @@
-"""Times of the cumsum and weighted-histogram kernels, their library calls,
-and the host cost of a kernel launch, on one CUDA card.
+"""Times of the cumsum, weighted-histogram, bitonic-merge and sum kernels,
+their library calls, and the host cost of a kernel launch, on one CUDA card.
 
     python dwarf_bench_tpu_torch/utils/kernel_times.py [--root DIR] [--sweep]
         [--host] [--label NAME]
@@ -8,15 +8,20 @@ and the host cost of a kernel launch, on one CUDA card.
 (default: the one holding this file), so that two commits can be compared on
 one card in one run: run this file from the newer checkout with
 ``--root`` pointing at the older one, in turns. The cases use only the
-wrappers ``cumsum_cuda.cumsum`` and ``hist_cuda.weighted_histogram``, which
-both have. ``--sweep`` times the weighted histogram under every (cluster,
-copies) plan at the main-path shapes, and ``--host`` breaks one launch's host
-time down over 10^4 calls; both need the newer checkout. Prints one JSON
-object a line, each with the card's name and power limit.
+wrappers ``cumsum_cuda.cumsum``, ``hist_cuda.weighted_histogram``,
+``bitonic_cuda.merge_bitonic`` and ``reduce_cuda.reduce_sum``, which both
+have: cumsum at 2^22, the weighted histogram at 2^20, the merge at 2^25 x 2
+and x 3 columns (the config-#4 probe) and 2^21 x 4 (``probe_merge_bitonic``
+of the CSR join at 2^20), the sum at 2^24. ``--sweep`` times the weighted
+histogram under every (cluster, copies) plan at the main-path shapes, and
+``--host`` breaks one launch's host time down over 10^4 calls; both need the
+newer checkout. Prints one JSON object a line, each with the card's name and
+power limit.
 
 Per case: ``events_ms``, the median of CUDA-event brackets around single
 calls (the host's dispatch shows when it is slower than the card);
 ``device_ms``, the CUDA kernels' time per call in a torch.profiler trace;
+``kernels_ms`` (the merge only), each kernel of one call in launch order;
 ``cold_ms``, the median event bracket with ``FLUSH_BYTES`` written and then
 half of them read back just before it, outside the bracket: the inputs are
 no longer in the 50 MB L2, the lines it holds are clean (a write alone
@@ -99,6 +104,50 @@ def device_ms(fn, *args, k: int = 10):
     return total_us / k / 1e3 if total_us > 0 else None
 
 
+def traced_kernels(fn, *args, k: int = 3) -> list:
+    """The CUDA events (kernels, memsets, copies) of ``k`` calls of
+    ``fn(*args)``, in launch order, from a torch.profiler trace taken after a
+    warm-up call: the first kernel after tracing starts can be missing from
+    a trace, so the warm-up step is not kept and the active steps' events
+    are read in on_trace_ready."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn(*args)
+    torch.cuda.synchronize()
+    traced = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=k),
+                 on_trace_ready=lambda p: traced.extend(p.events())) as prof:
+        for _ in range(1 + k):
+            fn(*args)
+            torch.cuda.synchronize()
+            prof.step()
+    events = [e for e in traced
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(events, key=lambda e: e.time_range.start)
+
+
+def device_ops(fn, *args, k: int = 3, traces: int = 3):
+    """(kernels, memsets) one call puts on the card: the most of ``traces``
+    traces of ``k`` calls, since a trace can still drop a kernel (never add
+    one)."""
+    counts = []
+    for _ in range(traces):
+        names = [e.name.lower() for e in traced_kernels(fn, *args, k=k)]
+        counts.append((sum("memset" not in name and "memcpy" not in name
+                           for name in names) / k,
+                       sum("memset" in name for name in names) / k))
+    return tuple(max(c[i] for c in counts) for i in range(2))
+
+
+def kernels_ms(fn, *args, traces: int = 3) -> list:
+    """Device ms of each CUDA kernel of one call, in launch order: the
+    longest list of ``traces`` traces of one call (as ``device_ops``)."""
+    return max(([e.time_range.elapsed_us() / 1e3
+                 for e in traced_kernels(fn, *args, k=1)]
+                for _ in range(traces)), key=len)
+
+
 def times(fn, *args) -> dict:
     return {"events_ms": events_ms(fn, *args), "device_ms": device_ms(fn, *args),
             "cold_ms": cold_ms(fn, *args)}
@@ -129,8 +178,43 @@ def inputs(dev):
     }
 
 
+def bitonic_columns(n: int, ncols: int, dev, seed: int = 3):
+    """A bitonic input of n rows: (key, aux) ascending over the first half,
+    descending over the second, as a sorted table and sorted queries are
+    merged; random payload columns past the second."""
+    rng = np.random.default_rng(seed)
+    halves = []
+    for flip in (False, True):
+        k = rng.integers(0, 2**32, n // 2, dtype=np.uint64)
+        a = rng.integers(0, 2**16, n // 2, dtype=np.uint64)
+        p = np.sort((k << np.uint64(32)) | a)
+        halves.append(p[::-1] if flip else p)
+    packed = np.concatenate(halves)
+    cols = [packed >> np.uint64(32), packed & np.uint64(0xFFFFFFFF)]
+    cols += [rng.integers(0, 2**32, n, dtype=np.uint64)
+             for _ in range(ncols - 2)]
+    return tuple(torch.from_numpy(c.astype(np.uint32).view(np.int32)).to(dev)
+                 for c in cols)
+
+
+def packed_sort(cols):
+    """The library call of the merge: torch.sort of the (col0, col1) pairs
+    packed into one int64 key, biased so that signed order is unsigned."""
+    key = (((cols[0].to(torch.int64) & 0xFFFFFFFF) << 32)
+           | (cols[1].to(torch.int64) & 0xFFFFFFFF)) ^ -(1 << 63)
+    return lambda *_: torch.sort(key)
+
+
+MERGE_SHAPES = ((1 << 25, 2), (1 << 25, 3), (1 << 21, 4))
+
+
 def case_lines(root_label: str, dev, emit) -> None:
-    from dwarf_bench_tpu_torch.ops import cumsum_cuda, hist_cuda
+    from dwarf_bench_tpu_torch.ops import (
+        bitonic_cuda,
+        cumsum_cuda,
+        hist_cuda,
+        reduce_cuda,
+    )
 
     d = inputs(dev)
     carry = torch.full((1,), -1, dtype=torch.int32, device=dev)
@@ -152,6 +236,20 @@ def case_lines(root_label: str, dev, emit) -> None:
                       (d[key], d["v"])))
     for label, fn, args in cases:
         emit({"root": root_label, "case": label, **times(fn, *args)})
+    for n, ncols in MERGE_SHAPES:
+        cols = bitonic_columns(n, ncols, dev)
+        label = f"2^{n.bit_length() - 1} x {ncols} cols"
+        emit({"root": root_label, "case": f"merge_bitonic {label}",
+              **times(bitonic_cuda.merge_bitonic, cols),
+              "kernels_ms": kernels_ms(bitonic_cuda.merge_bitonic, cols)})
+        emit({"root": root_label, "case": f"torch.sort packed key {label}",
+              **times(packed_sort(cols))})
+        del cols
+    x = d["v"].repeat(16)  # 2^24 values in [1, 10000]
+    emit({"root": root_label, "case": "reduce_sum 2^24",
+          **times(reduce_cuda.reduce_sum, x)})
+    emit({"root": root_label, "case": "torch.sum 2^24",
+          **times(lambda v: torch.sum(v, dtype=torch.int32), x)})
 
 
 def sweep_lines(dev, emit) -> None:
@@ -198,7 +296,12 @@ def sweep_lines(dev, emit) -> None:
 def host_lines(dev, emit) -> None:
     """Host seconds of one call of each piece of a launch, over 10^4 calls
     at 4096 rows (so the card keeps up with the host)."""
-    from dwarf_bench_tpu_torch.ops import _build, cumsum_cuda, hist_cuda
+    from dwarf_bench_tpu_torch.ops import (
+        _build,
+        cumsum_cuda,
+        hist_cuda,
+        reduce_cuda,
+    )
 
     calls = 10_000
     n = 4096
@@ -224,6 +327,9 @@ def host_lines(dev, emit) -> None:
 
     k = torch.from_numpy(np.arange(n, dtype=np.int32) % 65536).to(dev)
     carry = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    rscratch = _build.stream_scratch("reduce_sum", dev,
+                                     reduce_cuda.SCRATCH_WORDS)
+    rs, rwords = rscratch.data_ptr(), rscratch.numel()
     pieces = [
         ("ctypes call, n = 0 (returns before any CUDA call)",
          lambda: fn(xp, 0, None, -1, op, sp, stream)),
@@ -257,6 +363,18 @@ def host_lines(dev, emit) -> None:
         ("zeros + index_add_ 65536 bins",
          lambda: torch.zeros(65536, dtype=torch.int32, device=dev)
          .index_add_(0, k, x)),
+        ("reduce_sum wrapper", lambda: reduce_cuda.reduce_sum(x)),
+        ("torch.sum(dtype=int32)", lambda: torch.sum(x, dtype=torch.int32)),
+        ("torch.empty(()) int32",
+         lambda: torch.empty((), dtype=torch.int32, device=dev)),
+        ("x.new_empty(())", lambda: x.new_empty(())),
+        ("stream_scratch lookup",
+         lambda: _build.stream_scratch("reduce_sum", dev,
+                                       reduce_cuda.SCRATCH_WORDS)),
+        ("bare C call dbt_reduce_sum",
+         lambda: lib.dbt_reduce_sum(xp, n, op, rs, rwords, stream)),
+        ("launch('dbt_reduce_sum')",
+         lambda: _build.launch("dbt_reduce_sum", dev, xp, n, op, rs, rwords)),
     ]
     for label, piece in pieces:
         for _ in range(100):

@@ -45,6 +45,7 @@ from dwarf_bench_tpu_torch.ops import (
     vadd_cuda,
 )
 from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
+from dwarf_bench_tpu_torch.utils.kernel_times import device_ops
 
 pytestmark = pytest.mark.gpu
 
@@ -540,6 +541,65 @@ def test_merge_bitonic_any_input(cuda, rng):
     assert all(torch.equal(g, e) for g, e in zip(got, exp))
 
 
+def _bitonic_on(rng, n, ncols, key_hi, device):
+    return tuple(_t(c.astype(np.uint32).view(np.int32), device)
+                 for c in _bitonic_cols(rng, n, ncols, key_hi))
+
+
+@pytest.mark.parametrize("num_cmp", [1, 2])
+@pytest.mark.parametrize("ncols", [2, 4])
+@pytest.mark.parametrize("k", range(23))
+def test_merge_bitonic_every_power_of_two(cuda, rng, k, ncols, num_cmp):
+    """Every N = 2^k up to 2^22: every pass boundary of the plan (one short
+    tile, one full tile, one to two strided passes) meets the twin."""
+    cols = _bitonic_on(rng, 1 << k, ncols, 1 << 12, cuda)
+    got = bitonic_cuda.merge_bitonic(cols, num_cmp)
+    exp = bitonic_cuda.merge_bitonic_plain(cols, num_cmp)
+    assert all(torch.equal(g, e) for g, e in zip(got, exp))
+
+
+@pytest.mark.parametrize("ncols", [2, 3])
+def test_merge_bitonic_2p25(cuda, rng, ncols):
+    cols = _bitonic_on(rng, 1 << 25, ncols, 2**32, cuda)
+    got = bitonic_cuda.merge_bitonic(cols)
+    exp = bitonic_cuda.merge_bitonic_plain(cols)
+    assert all(torch.equal(g, e) for g, e in zip(got, exp))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_merge_bitonic_of_views_off_16_bytes(cuda, rng, offset):
+    """Columns that start 4, 8 or 12 bytes past a 16-byte boundary."""
+    n = 1 << 16
+    cols = tuple(torch.cat([torch.zeros(offset, dtype=torch.int32,
+                                        device=cuda), c])[offset:]
+                 for c in _bitonic_on(rng, n, 3, 1000, cuda))
+    got = bitonic_cuda.merge_bitonic(cols)
+    exp = bitonic_cuda.merge_bitonic_plain(cols)
+    assert all(torch.equal(g, e) for g, e in zip(got, exp))
+
+
+def test_merge_bitonic_refuses_a_broken_plan(cuda):
+    n = 1 << 14
+    cols = (torch.zeros(n, dtype=torch.int32, device=cuda),) * 2
+    plan = bitonic_cuda._tiled_plan(n, 2, 9)
+    for passes in (plan.passes[1:], plan.passes[:-1],
+                   ((14, 14),) + plan.passes, ((9, 14), (0, 9))):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            bitonic_cuda._launch(cols, cuda, n, 2,
+                                 plan._replace(passes=passes))
+
+
+@pytest.mark.parametrize("n,ncols", [(1 << 25, 2), (1 << 25, 3),
+                                     (1 << 21, 4), (1 << 10, 2)])
+def test_merge_bitonic_kernels_per_call(cuda, rng, n, ncols):
+    """One kernel a pass and nothing else: 3 at 2^25 (15 before)."""
+    cols = _bitonic_on(rng, n, ncols, 2**32, cuda)
+    passes = len(bitonic_cuda.merge_plan(n, ncols).passes)
+    assert device_ops(bitonic_cuda.merge_bitonic, cols) == (passes, 0)
+    if n == 1 << 25:
+        assert passes == 3
+
+
 @pytest.mark.parametrize("mode", ["val32", "val16", "membership"])
 @pytest.mark.parametrize("n", [1, 1023, 1025, 1 << 15, 1_000_003])
 def test_merge_fill(cuda, rng, n, mode):
@@ -561,6 +621,49 @@ def test_reduce_sum(cuda, rng, n):
         got = reduce_cuda.reduce_sum(v)
         assert got.shape == () and got.is_cuda
         assert int(got) == int(reduce_cuda.reduce_sum_plain(v.cpu()))
+
+
+def test_reduce_sum_returns_a_0d_tensor_of_its_own(cuda, rng):
+    got = reduce_cuda.reduce_sum(_t(rng.integers(0, 9, 1000), cuda))
+    assert got.shape == () and got.dtype == torch.int32 and got._base is None
+
+
+@pytest.mark.parametrize("n", [0, 5, 1 << 24])
+def test_reduce_sum_is_one_kernel_and_no_memset(cuda, rng, n):
+    x = _t(rng.integers(-(2**31), 2**31, n), cuda)
+    assert device_ops(reduce_cuda.reduce_sum, x) == (1, 0)
+
+
+def test_reduce_sum_back_to_back(cuda, rng):
+    """Calls queued one after another on a stream: each finds the ticket
+    the one before left at 0."""
+    xs = [_t(rng.integers(-(2**31), 2**31, n), cuda)
+          for n in (1 << 24, 3, 0, 1_000_003, (1 << 20) + 1)]
+    torch.cuda.synchronize()
+    got = [reduce_cuda.reduce_sum(x) for x in xs for _ in range(3)]
+    exp = [int(reduce_cuda.reduce_sum_plain(x.cpu())) for x in xs
+           for _ in range(3)]
+    assert [int(g) for g in got] == exp
+
+
+def test_reduce_sum_on_two_streams(cuda, rng):
+    """Two streams at once, each with its own scratch, behind a sleep so
+    that their calls overlap on the card."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    xs = [_t(rng.integers(-(2**31), 2**31, (1 << 22) + i), cuda)
+          for i in range(2)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for rep in range(4):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                if rep == 0:
+                    torch.cuda._sleep(5_000_000)
+                got[i].append(reduce_cuda.reduce_sum(xs[i]))
+    torch.cuda.synchronize()
+    for i, x in enumerate(xs):
+        exp = int(reduce_cuda.reduce_sum_plain(x.cpu()))
+        assert [int(g) for g in got[i]] == [exp] * 4
 
 
 @pytest.mark.parametrize("mode", ["val16", "val32", "membership"])

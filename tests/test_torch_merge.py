@@ -74,6 +74,130 @@ def test_bitonic_rejects_bad_shapes():
         bitonic_cuda.merge_bitonic((_t([1, 2]),) * 2, num_cmp=3)
 
 
+@pytest.mark.parametrize("ncols", [2, 3, 4])
+@pytest.mark.parametrize("tile_bits", [None, 9, 10, 11, 12])
+def test_merge_plan_covers_every_stride_once(ncols, tile_bits):
+    """Every stride n/2 ... 1 in exactly one pass, highest first; strided
+    passes keep a run of >= 32 rows below lo and fit the tile; the tile fits
+    the shared memory the kernel assumes."""
+    def plan_of(n):
+        if tile_bits is None:
+            return bitonic_cuda.merge_plan(n, ncols)
+        return bitonic_cuda._tiled_plan(n, ncols, tile_bits)
+
+    for m in range(27):
+        plan = plan_of(1 << m)
+        L = plan.tile_bits
+        assert bitonic_cuda.MIN_TILE_BITS <= L <= bitonic_cuda.TILE_BITS
+        assert ncols * 4 << L <= bitonic_cuda.MAX_SMEM_BYTES
+        bits = [b for lo, hi in plan.passes for b in range(hi - 1, lo - 1, -1)]
+        assert bits == list(range(m - 1, -1, -1))
+        assert [hi for _, hi in plan.passes][0] == m
+        *strided, last = plan.passes
+        assert last == (0, min(m, L))
+        for lo, hi in strided:
+            w = hi - lo
+            assert 1 <= w and lo >= 5 and lo >= L
+            assert L - w >= 5  # the run: 32 or more consecutive rows
+        # the fewest passes: each strided one as wide as the run allows
+        width = L - 5
+        assert len(strided) == max(0, -(-(m - L) // width))
+    assert plan_of(0).passes == ()
+
+
+def test_merge_plan_takes_three_passes_at_2p25():
+    for ncols in (2, 3, 4):
+        assert len(bitonic_cuda.merge_plan(1 << 25, ncols).passes) == 3
+    with pytest.raises(ValueError):
+        bitonic_cuda._tiled_plan(1 << 10, 2, 8)
+    with pytest.raises(ValueError):
+        bitonic_cuda._tiled_plan(1 << 10, 2, 13)
+    with pytest.raises(ValueError):
+        bitonic_cuda.merge_plan(1 << 10, 5)
+
+
+def _tile_rows(n, tile_bits, lo, hi):
+    """(tiles, rows) global row of each local index of each tile of the pass
+    over stride bits [lo, hi), by csrc/bitonic.cu's ``tile_base`` and
+    ``global_of``; a tile longer than n keeps its first n rows."""
+    L = tile_bits
+    run = 0 if lo == 0 else L - (hi - lo)
+    j = torch.arange(min(1 << L, n), dtype=torch.int64)
+    local = (j & ((1 << run) - 1)) | ((j >> run) << lo)
+    t = torch.arange(max(n >> L, 1), dtype=torch.int64)
+    low_bits = lo - run
+    base = (((t & ((1 << low_bits) - 1)) << run)
+            | ((t >> low_bits) << (lo + L - run)))
+    return base[:, None] | local[None, :], run
+
+
+def _tiled_schedule(cols, num_cmp, plan):
+    """The kernel's schedule in plain PyTorch: gather each pass's tiles,
+    run that pass's stages inside every tile (local bits [run, L) for a
+    strided pass, [0, hi) for the last), highest first, scatter back."""
+    n = cols[0].numel()
+    vals = [c.to(torch.int64) & 0xFFFFFFFF for c in cols]  # unsigned order
+    for lo, hi in plan.passes:
+        rows, run = _tile_rows(n, plan.tile_bits, lo, hi)
+        assert torch.equal(torch.sort(rows.flatten())[0], torch.arange(n))
+        tiles = [v[rows] for v in vals]
+        width = rows.shape[1]
+        stage_bits = (range(hi - 1, -1, -1) if lo == 0
+                      else range(plan.tile_bits - 1, run - 1, -1))
+        for b in stage_bits:
+            s = 1 << b
+            shaped = [t.view(t.shape[0], width // (2 * s), 2, s) for t in tiles]
+            k_lo, k_hi = shaped[0][:, :, 0], shaped[0][:, :, 1]
+            swap = k_hi < k_lo
+            if num_cmp == 2:
+                a_lo, a_hi = shaped[1][:, :, 0], shaped[1][:, :, 1]
+                swap |= (k_hi == k_lo) & (a_hi < a_lo)
+            tiles = [torch.stack([torch.where(swap, t[:, :, 1], t[:, :, 0]),
+                                  torch.where(swap, t[:, :, 0], t[:, :, 1])],
+                                 2).view(t.shape[0], width) for t in shaped]
+        for v, t in zip(vals, tiles):
+            v[rows] = t
+    return [v.to(torch.int32) for v in
+            (((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31) for v in vals)]
+
+
+@pytest.mark.parametrize("tile_bits", [9, 10, 11, 12])
+@pytest.mark.parametrize("m,ncols,num_cmp,bitonic", [
+    (0, 2, 2, True), (3, 3, 1, True), (9, 2, 2, True), (11, 4, 2, True),
+    (13, 2, 1, True), (14, 3, 2, True), (16, 2, 2, True), (16, 4, 1, True),
+    (10, 3, 2, False), (16, 2, 2, False),
+])
+def test_tiled_schedule_matches_jax(rng, tile_bits, m, ncols, num_cmp,
+                                    bitonic):
+    """Small tiles force every pass kind (strided passes of 1 to L - 5
+    bits, with and without a run wider than 32 rows, and a last pass that
+    is one short tile or one of many); bitonic and arbitrary input."""
+    n = 1 << m
+    if bitonic:
+        cols = _bitonic_input(rng, n, ncols, 40)
+    else:
+        cols = [rng.integers(0, 6, n).astype(np.uint32) for _ in range(ncols)]
+    plan = bitonic_cuda._tiled_plan(n, ncols, tile_bits)
+    ref = jax_merge_bitonic(tuple(jnp.asarray(c) for c in cols),
+                            num_cmp=num_cmp)
+    got = _tiled_schedule([_t(c) for c in cols], num_cmp, plan)
+    for g, r in zip(got, ref):
+        assert np.array_equal(_u32(g), np.asarray(r))
+
+
+@pytest.mark.parametrize("m", range(16))
+def test_tiled_schedule_of_the_default_plan_matches_jax(rng, m):
+    """The plan the wrapper takes at every N = 2^m up to 2^15: one short
+    tile, one full tile, then one strided pass before the last."""
+    n, ncols = 1 << m, 2 + m % 3
+    cols = _bitonic_input(rng, n, ncols, 1 << 12)
+    ref = jax_merge_bitonic(tuple(jnp.asarray(c) for c in cols), num_cmp=2)
+    got = _tiled_schedule([_t(c) for c in cols], 2,
+                          bitonic_cuda.merge_plan(n, ncols))
+    for g, r in zip(got, ref):
+        assert np.array_equal(_u32(g), np.asarray(r))
+
+
 @pytest.fixture(scope="module")
 def merged_2p15():
     """The merged order of tests/test_bitonic_pallas.py's fill test:

@@ -45,3 +45,15 @@ def test_reduce_empty_and_checks():
         tr.reduce_sum(torch.zeros(4, dtype=torch.int64))
     with pytest.raises(ValueError):
         tr.reduce_sum(torch.zeros(2, 2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n,offset", [(1, 1), (3, 1), (5, 3), (4099, 2)])
+def test_reduce_of_a_view_is_a_0d_tensor_of_its_own(rng, n, offset):
+    """Views that start off a 16-byte boundary (the kernel's scalar head)
+    sum as the JAX kernel does, into a 0-d tensor that is not a view."""
+    x = rng.integers(-(2**31), 2**31, n + offset).astype(np.int32)
+    view = torch.from_numpy(x)[offset:]
+    got = reduce_cuda.reduce_sum(view)
+    assert got.shape == () and got.dtype == torch.int32 and got._base is None
+    assert int(got) == int(jr.reduce_sum_pallas(jnp.asarray(x[offset:]),
+                                                interpret=True))
