@@ -17,14 +17,19 @@ with nvcc, then:
      take: bytes over 3.35 TB/s or operations over 67 TOP/s, whichever is
      larger; for the lock kernel, one assumed L2 round trip per serialized
      acquisition); cumsum and weighted_histogram and their library calls
-     are also timed with the L2 flushed before each call; cumsum runs with
-     an int carry under CUDA's sync debug mode, and both under a
-     non-default stream; merge_bitonic at every N = 2^k up to 2^22 (2 and
-     4 columns, num_cmp 1 and 2); reduce_sum three times back to back on
-     one stream and on two streams at once; the CUDA kernels and memsets
-     one call puts on the card, read from torch.profiler, must be one a
-     pass of the plan for merge_bitonic at 2^25 (3) and one kernel and no
-     memset for reduce_sum;
+     are also timed with the L2 flushed before each call, and merge_bitonic,
+     merge_fill, reduce_sum and vadd as replays of a captured CUDA graph; a
+     profiler time below the bound is flagged; cumsum runs with an int
+     carry under CUDA's sync debug mode, and both under a non-default
+     stream; merge_bitonic at every N = 2^k up to 2^22 (2 and 4 columns,
+     num_cmp 1 and 2); merge_fill at its tile boundaries, on misaligned
+     views, five times back to back and on two streams; reduce_sum three
+     times back to back on one stream and on two streams at once; vadd at
+     its tile boundaries, aligned and misaligned; the CUDA kernels and
+     memsets one call puts on the card, counted as the nodes of a captured
+     CUDA graph, must be one a pass of the plan for merge_bitonic at 2^25
+     (3) and one kernel and no memset for merge_fill in each mode,
+     reduce_sum and vadd, aligned or not;
   3. drives the dwarfs through the CLI entry point with ``--device=gpu``
      (Radix 2^22, GroupBy 2^22 with G=64, GroupBy 2^20 with G=2^16,
      JoinOmnisci 2^20, TwoPassScan, DPLScan and DPLScanCuda 2^24,
@@ -55,8 +60,9 @@ with nvcc, then:
      2^20, Scan 2^24, three iterations); the vadd and lock_add examples in
      this process; and every measurement-script name once at its main's
      shape, against its plain version;
-  6. prints one JSON line with each kernel's launches, error and times, and
-     last the JSON line ``{"ok": true, "device": {...}}``.
+  6. prints the kernels whose profiler time fell below their bound, one
+     JSON line with each kernel's launches, error and times, and last the
+     JSON line ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero before the last line. It exits non-zero at once
 when CUDA is not available. It imports no JAX.
@@ -280,14 +286,20 @@ def phase_kernels(dev):
         vadd_cuda,
     )
     from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
-    from dwarf_bench_tpu_torch.utils.kernel_times import cold_ms, device_ops
+    from dwarf_bench_tpu_torch.utils.kernel_times import (
+        cold_ms,
+        device_ops,
+        graph_ms,
+    )
     from dwarf_bench_tpu_torch.utils.timing import kernel_time, sync
 
     rng = np.random.default_rng(20261016)
     stats = {name: {"max_abs_err": 0, "ms": None, "plain_ms": None,
                     "bound_ms": None, "bound_by": None, "library_ms": None,
                     "device_ms": None, "library_device_ms": None,
-                    "cold_ms": None, "library_cold_ms": None}
+                    "cold_ms": None, "library_cold_ms": None,
+                    "graph_ms": None, "library_graph_ms": None,
+                    "device_below_bound": None}
              for name in KERNELS}
 
     def t(a):
@@ -297,7 +309,7 @@ def phase_kernels(dev):
         return [], [(res, res.numel())]
 
     def run(name, label, kernel, plain, *args, view=whole, timed=False,
-            cost=None, library=None, cold=False):
+            cost=None, library=None, cold=False, graph=False):
         """Kernel against twin on ``args``. ``view`` maps a result to
         (counts, [(tensor, slots that hold data)]): a compaction's output is
         garbage past its count, so only the twin's slots are compared. A
@@ -305,7 +317,11 @@ def phase_kernels(dev):
         the same function where there is one (events and device time), and
         takes the bound from ``cost(result) = (bytes, operations)``; a
         ``cold`` one also times kernel and library call with the L2 flushed
-        before each bracket (``kernel_times.cold_ms``)."""
+        before each bracket (``kernel_times.cold_ms``); a ``graph`` one
+        (a call with no read back to the host) also times both as replays
+        of a captured CUDA graph (``kernel_times.graph_ms``), which no
+        trace can thin out. A profiler time below the bound is flagged:
+        the trace lost kernels, or the inputs sat in the L2."""
         res = sync(kernel(*args))
         got_counts, got = view(res)
         exp_counts, exp = view(sync(plain(*args)))
@@ -333,18 +349,30 @@ def phase_kernels(dev):
             if cold:
                 cold_k = cold_ms(kernel, *args)
                 cold_lib = None if library is None else cold_ms(library, *args)
+            graph_k = graph_lib = None
+            if graph:
+                graph_k = graph_ms(kernel, *args)
+                graph_lib = None if library is None else graph_ms(library,
+                                                                  *args)
             bound_ms, bound_by = bound(*cost(res))
+            below = dev_ms is not None and dev_ms < bound_ms
             if st["ms"] is None:
                 st.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
                           device_ms=dev_ms, library_device_ms=lib_dev_ms,
-                          cold_ms=cold_k, library_cold_ms=cold_lib)
+                          cold_ms=cold_k, library_cold_ms=cold_lib,
+                          graph_ms=graph_k, library_graph_ms=graph_lib,
+                          device_below_bound=below)
             line += (f" kernel_ms={ms!r} device_ms={dev_ms!r} "
                      f"plain_ms={plain_ms!r} library_ms={lib_ms!r} "
                      f"library_device_ms={lib_dev_ms!r} "
                      f"bound_ms={bound_ms!r} ({bound_by})")
             if cold:
                 line += f" cold_ms={cold_k!r} library_cold_ms={cold_lib!r}"
+            if graph:
+                line += f" graph_ms={graph_k!r} library_graph_ms={graph_lib!r}"
+            if below:
+                line += " DEVICE_MS_BELOW_BOUND"
         print(line, flush=True)
         check(err == 0, f"{name} [{label}]: kernel and plain twin differ "
                         f"(max_abs_err {err})")
@@ -658,10 +686,10 @@ def phase_kernels(dev):
                 | (in16[1].to(torch.int64) & 0xFFFFFFFF)) ^ -(1 << 63)
     run("merge_bitonic", "N=2^25 x 2 cols (val16)", mb, mbp, in16, 2,
         view=columns, timed=True, cost=network_cost,
-        library=lambda cols, _: torch.sort(packed16))
+        library=lambda cols, _: torch.sort(packed16), graph=True)
     del packed16
     run("merge_bitonic", "N=2^25 x 3 cols (val32)", mb, mbp, in32, 2,
-        view=columns, timed=True, cost=network_cost)
+        view=columns, timed=True, cost=network_cost, graph=True)
     # one kernel a pass of the plan, 3 at 2^25 (15 before the tiled passes)
     for label, cols in (("2 cols", in16), ("3 cols", in32)):
         plan = bitonic_cuda.merge_plan(1 << 25, len(cols))
@@ -712,20 +740,72 @@ def phase_kernels(dev):
         return lambda res: (4 * (ncols + 2) * res[0].numel(),
                             10 * res[0].numel())
 
+    fill_modes = (("val32", (False, False)), ("val16", (True, False)),
+                  ("membership", (False, True)))
     run("merge_fill", "N=2^25 val32", mf, mfp, m32[0], m32[1], m32[2], nq,
-        False, False, view=columns, timed=True, cost=fill_cost(3))
+        False, False, view=columns, timed=True, cost=fill_cost(3), cold=True,
+        graph=True)
     run("merge_fill", "N=2^25 val16", mf, mfp, m16[0], m16[1], None, nq,
-        True, False, view=columns, timed=True, cost=fill_cost(2))
+        True, False, view=columns, timed=True, cost=fill_cost(2), graph=True)
     run("merge_fill", "N=2^25 membership", mf, mfp, mm[0], mm[1], None, nq,
-        False, True, view=columns, timed=True, cost=fill_cost(2))
+        False, True, view=columns, timed=True, cost=fill_cost(2), graph=True)
+    # one launch a call and no memset in every mode (3 launches before)
+    for (mode, flags), cols in zip(fill_modes, (m32, m16, mm)):
+        ops = device_ops(mf, cols[0], cols[1],
+                         cols[2] if mode == "val32" else None, nq, *flags)
+        print(f"kernel merge_fill [N=2^25 {mode}]: kernels per call "
+              f"{ops[0]!r}, memsets {ops[1]!r}", flush=True)
+        check(ops == (1, 0), f"merge_fill at 2^25 {mode}: {ops} kernels and "
+                             "memsets a call, expected 1 and 0")
     del in16, in32, inm, m16, m32, mm
-    for n_any in (1, 1025, 1_000_003):
+    # any length, the tile boundaries (8192 rows a block) and 2^25 + 3
+    fill_tile = 8192
+    for n_any in (1, 1023, 1025, fill_tile - 1, fill_tile, fill_tile + 1,
+                  1_000_003, (1 << 25) + 3):
         cols = [t(rng.integers(i32min, i32max, n_any, endpoint=True))
                 for _ in range(3)]
-        for mode, flags in (("val32", (False, False)), ("val16", (True, False)),
-                            ("membership", (False, True))):
+        for mode, flags in fill_modes:
             run("merge_fill", f"any length n={n_any} {mode}", mf, mfp,
                 *cols, n_any // 2, *flags, view=columns)
+    # columns off a 16-byte boundary; calls back to back on one stream, each
+    # finding the scratch the one before left at 0; two streams at once
+    wide = [t(rng.integers(i32min, i32max, 1_000_004, endpoint=True))
+            for _ in range(3)]
+    for mode, flags in fill_modes:
+        run("merge_fill", f"views off 16 bytes {mode}", mf, mfp,
+            *(c[1:] for c in wide), 500_000, *flags, view=columns)
+    big = [t(rng.integers(i32min, i32max, (1 << 22) + 1, endpoint=True))
+           for _ in range(3)]
+    calls = [(big, fill_modes[0][1]), ([c[:3] for c in wide], fill_modes[1][1]),
+             ([c[:-1] for c in wide], fill_modes[2][1]),
+             ([c[:fill_tile] for c in wide], fill_modes[0][1]),
+             ([c[1:] for c in wide], fill_modes[1][1])]
+    torch.cuda.synchronize()
+    outs = [mf(*cols, cols[0].numel() // 2, *flags) for cols, flags in calls]
+    for got, (cols, flags) in zip(outs, calls):
+        exp = mfp(*cols, cols[0].numel() // 2, *flags)
+        check(all(torch.equal(g, e) for g, e in zip(got, exp)),
+              "merge_fill: back-to-back calls on one stream differ from the "
+              "twin")
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    pairs = [big, [c[:-1] for c in wide]]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for rep, (_, flags) in enumerate(fill_modes):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                if rep == 0:
+                    torch.cuda._sleep(5_000_000)
+                outs[i].append(mf(*pairs[i], 1 << 19, *flags))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got, (_, flags) in zip(outs[i], fill_modes):
+            exp = mfp(*pairs[i], 1 << 19, *flags)
+            check(all(torch.equal(g, e) for g, e in zip(got, exp)),
+                  f"merge_fill on stream {i} differs from the twin")
+    print("kernel merge_fill [back to back x 5, two streams x 3]: "
+          "max_abs_err=0", flush=True)
+    del wide, big, calls, pairs, outs
 
     r, rp = reduce_cuda.reduce_sum, reduce_cuda.reduce_sum_plain
 
@@ -735,7 +815,7 @@ def phase_kernels(dev):
     run("reduce_sum", "n=2^24 in [1, 10000]", r, rp,
         t(make_random(1 << 24, seed=10)), view=scalar, timed=True,
         cost=lambda res: (4 * (1 << 24) + 4, 1 << 24),
-        library=lambda x: torch.sum(x, dtype=torch.int32))
+        library=lambda x: torch.sum(x, dtype=torch.int32), graph=True)
     run("reduce_sum", "n=0", r, rp, t([]), view=scalar)
     run("reduce_sum", "n=1", r, rp, t([i32min]), view=scalar)
     run("reduce_sum", "sums wrap past 2^31 and 2^32", r, rp,
@@ -883,9 +963,26 @@ def phase_kernels(dev):
         f32(1024).view(8, 128), view=bits)
     fa, fb = f32(1 << 24), f32(1 << 24)
     run("vadd_pallas", "2^24 f32", va, vap, fa, fb, view=bits, timed=True,
-        cost=lambda res: (12 * (1 << 24), 1 << 24), library=torch.add)
+        cost=lambda res: (12 * (1 << 24), 1 << 24), library=torch.add,
+        cold=True, graph=True)
     run("vadd_pallas", "2^24 - 1 f32, misaligned", va, vap, fa[1:], fb[1:],
         view=bits)
+    # the tile boundaries (2048 values a block), aligned and misaligned
+    vadd_tile = 2048
+    for n_v in (vadd_tile - 1, vadd_tile, vadd_tile + 1, 5 * vadd_tile + 3):
+        run("vadd_pallas", f"n={n_v} f32", va, vap, fa[:n_v], fb[:n_v],
+            view=bits)
+        run("vadd_pallas", f"n={n_v} f32, misaligned", va, vap,
+            fa[1: n_v + 1], fb[1: n_v + 1], view=bits)
+    # one launch a call, misaligned inputs included (2 launches before for a
+    # ragged aligned input)
+    for label, x, y in (("2^24 f32", fa, fb),
+                        ("2^24 - 5 f32, misaligned", fa[1:-4], fb[1:-4])):
+        ops = device_ops(va, x, y)
+        print(f"kernel vadd_pallas [{label}]: kernels per call {ops[0]!r}, "
+              f"memsets {ops[1]!r}", flush=True)
+        check(ops == (1, 0), f"vadd_pallas [{label}]: {ops} kernels and "
+                             "memsets a call, expected 1 and 0")
     run("vadd_pallas", "int32 wrapping, n=1000003", va, vap,
         t(rng.integers(i32min, i32max, 1_000_003, endpoint=True)),
         t(rng.integers(i32min, i32max, 1_000_003, endpoint=True)))
@@ -1595,6 +1692,10 @@ def main() -> int:
                                   "end")
         check(stats[name]["ms"] is not None, f"kernel {name} was not timed")
 
+    print("device_ms below bound_ms (a trace lost kernels, or the inputs sat "
+          "in the L2): " + json.dumps(
+              [name for name in KERNELS if stats[name]["device_below_bound"]]),
+          flush=True)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **stats[name]}

@@ -1,5 +1,6 @@
-"""Times of the cumsum, weighted-histogram, bitonic-merge and sum kernels,
-their library calls, and the host cost of a kernel launch, on one CUDA card.
+"""Times of the cumsum, weighted-histogram, bitonic-merge, sum, merge-fill
+and vadd kernels, their library calls, and the host cost of a kernel launch,
+on one CUDA card.
 
     python dwarf_bench_tpu_torch/utils/kernel_times.py [--root DIR] [--sweep]
         [--host] [--label NAME]
@@ -9,19 +10,23 @@ their library calls, and the host cost of a kernel launch, on one CUDA card.
 one card in one run: run this file from the newer checkout with
 ``--root`` pointing at the older one, in turns. The cases use only the
 wrappers ``cumsum_cuda.cumsum``, ``hist_cuda.weighted_histogram``,
-``bitonic_cuda.merge_bitonic`` and ``reduce_cuda.reduce_sum``, which both
+``bitonic_cuda.merge_bitonic``, ``reduce_cuda.reduce_sum``,
+``merge_fill_cuda.merge_fill`` and ``vadd_cuda.vadd_pallas``, which both
 have: cumsum at 2^22, the weighted histogram at 2^20, the merge at 2^25 x 2
 and x 3 columns (the config-#4 probe) and 2^21 x 4 (``probe_merge_bitonic``
-of the CSR join at 2^20), the sum at 2^24. ``--sweep`` times the weighted
-histogram under every (cluster, copies) plan at the main-path shapes, and
-``--host`` breaks one launch's host time down over 10^4 calls; both need the
-newer checkout. Prints one JSON object a line, each with the card's name and
-power limit.
+of the CSR join at 2^20), the sum at 2^24, the fill at 2^25 in its three
+modes, vadd at 2^24 float32. ``--sweep`` times the weighted histogram under
+every (cluster, copies) plan at the main-path shapes and ``--host`` breaks
+one launch's host time down over 10^4 calls; both need the newer checkout.
+Prints one JSON object a line, each with the card's name and power limit.
 
 Per case: ``events_ms``, the median of CUDA-event brackets around single
 calls (the host's dispatch shows when it is slower than the card);
 ``device_ms``, the CUDA kernels' time per call in a torch.profiler trace;
-``kernels_ms`` (the merge only), each kernel of one call in launch order;
+``graph_ms`` (the merge, the sum, the fill, vadd), CUDA events around
+replays of a CUDA graph of several calls, which no trace can thin out;
+``kernels_ms`` (the merge, the fill, vadd), each kernel of one call in
+launch order;
 ``cold_ms``, the median event bracket with ``FLUSH_BYTES`` written and then
 half of them read back just before it, outside the bracket: the inputs are
 no longer in the 50 MB L2, the lines it holds are clean (a write alone
@@ -127,30 +132,97 @@ def traced_kernels(fn, *args, k: int = 3) -> list:
     return sorted(events, key=lambda e: e.time_range.start)
 
 
-def device_ops(fn, *args, k: int = 3, traces: int = 3):
-    """(kernels, memsets) one call puts on the card: the most of ``traces``
-    traces of ``k`` calls, since a trace can still drop a kernel (never add
-    one)."""
-    counts = []
-    for _ in range(traces):
-        names = [e.name.lower() for e in traced_kernels(fn, *args, k=k)]
-        counts.append((sum("memset" not in name and "memcpy" not in name
-                           for name in names) / k,
-                       sum("memset" in name for name in names) / k))
-    return tuple(max(c[i] for c in counts) for i in range(2))
+def _capture(fn, *args, k: int = 1):
+    """(graph, stream): a CUDA graph of ``k`` calls of ``fn(*args)``,
+    captured on a stream that a first call warmed (a wrapper's per-stream
+    scratch is made outside the capture). The calls must not read back to
+    the host."""
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn(*args)
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
+        for _ in range(k):
+            fn(*args)
+    return graph, stream
+
+
+# CUgraphNodeType of the driver API (cudaGraphNodeType has the same values)
+_KERNEL_NODE, _MEMSET_NODE = 0, 2
+
+
+def device_ops(fn, *args):
+    """(kernels, memsets) one call of ``fn(*args)`` puts on the card: the
+    kernel and memset nodes of a CUDA graph captured around the call, read
+    through the driver API (a cudaGraph_t is a CUgraph). A profiler trace
+    can lose kernels, more of them the longer a process has run, so the
+    count does not come from one."""
+    import ctypes
+
+    driver = ctypes.CDLL("libcuda.so.1")
+
+    def call(name, *argv):
+        rc = getattr(driver, name)(*argv)
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA driver error {rc}")
+
+    graph, _ = _capture(fn, *args)
+    try:
+        raw = ctypes.c_void_p(graph.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        call("cuGraphGetNodes", raw, None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        if n.value:
+            call("cuGraphGetNodes", raw, nodes, ctypes.byref(n))
+        types = []
+        for node in nodes:
+            t = ctypes.c_int()
+            call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(t))
+            types.append(t.value)
+    finally:
+        graph.reset()
+    return types.count(_KERNEL_NODE), types.count(_MEMSET_NODE)
+
+
+def graph_ms(fn, *args, k: int = 10, reps: int = 5) -> float:
+    """Device ms of one call of ``fn(*args)``: the median of CUDA-event
+    brackets around ``reps`` replays of a CUDA graph of ``k`` calls, over
+    ``k``. Unlike a profiler trace it cannot lose a kernel; it holds the
+    gaps between the graph's kernels (no host dispatch), which a trace's
+    kernel sum leaves out."""
+    graph, stream = _capture(fn, *args, k=k)
+    pairs = []
+    with torch.cuda.stream(stream):
+        graph.replay()
+        for _ in range(reps):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            graph.replay()
+            e.record()
+            pairs.append((s, e))
+    stream.synchronize()
+    graph.reset()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs) / k
 
 
 def kernels_ms(fn, *args, traces: int = 3) -> list:
     """Device ms of each CUDA kernel of one call, in launch order: the
-    longest list of ``traces`` traces of one call (as ``device_ops``)."""
+    longest list of ``traces`` traces of one call, since a trace can drop a
+    kernel (never add one)."""
     return max(([e.time_range.elapsed_us() / 1e3
                  for e in traced_kernels(fn, *args, k=1)]
                 for _ in range(traces)), key=len)
 
 
-def times(fn, *args) -> dict:
-    return {"events_ms": events_ms(fn, *args), "device_ms": device_ms(fn, *args),
-            "cold_ms": cold_ms(fn, *args)}
+def times(fn, *args, graph: bool = False) -> dict:
+    """Events, profiler and cold times of ``fn(*args)``, and with ``graph``
+    (a call that does not read back to the host) its graph-replay time."""
+    out = {"events_ms": events_ms(fn, *args),
+           "device_ms": device_ms(fn, *args), "cold_ms": cold_ms(fn, *args)}
+    if graph:
+        out["graph_ms"] = graph_ms(fn, *args)
+    return out
 
 
 def inputs(dev):
@@ -206,6 +278,23 @@ def packed_sort(cols):
 
 
 MERGE_SHAPES = ((1 << 25, 2), (1 << 25, 3), (1 << 21, 4))
+FILL_MODES = (("val32", False, False), ("val16", True, False),
+              ("membership", False, True))
+
+
+def fill_columns(n: int, dev, seed: int = 4):
+    """(sk, sa, dv) of n rows: random bit patterns, half of the rows
+    queries (bit 31 of sa). The fill's work does not depend on the order."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.integers(
+        0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
+        for _ in range(3))
+
+
+def f32_pair(n: int, dev, seed: int = 5):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+                 .to(dev) for _ in range(2))
 
 
 def case_lines(root_label: str, dev, emit) -> None:
@@ -213,7 +302,9 @@ def case_lines(root_label: str, dev, emit) -> None:
         bitonic_cuda,
         cumsum_cuda,
         hist_cuda,
+        merge_fill_cuda,
         reduce_cuda,
+        vadd_cuda,
     )
 
     d = inputs(dev)
@@ -240,16 +331,34 @@ def case_lines(root_label: str, dev, emit) -> None:
         cols = bitonic_columns(n, ncols, dev)
         label = f"2^{n.bit_length() - 1} x {ncols} cols"
         emit({"root": root_label, "case": f"merge_bitonic {label}",
-              **times(bitonic_cuda.merge_bitonic, cols),
+              **times(bitonic_cuda.merge_bitonic, cols, graph=True),
               "kernels_ms": kernels_ms(bitonic_cuda.merge_bitonic, cols)})
         emit({"root": root_label, "case": f"torch.sort packed key {label}",
-              **times(packed_sort(cols))})
+              **times(packed_sort(cols), graph=True)})
         del cols
     x = d["v"].repeat(16)  # 2^24 values in [1, 10000]
     emit({"root": root_label, "case": "reduce_sum 2^24",
-          **times(reduce_cuda.reduce_sum, x)})
+          **times(reduce_cuda.reduce_sum, x, graph=True)})
     emit({"root": root_label, "case": "torch.sum 2^24",
-          **times(lambda v: torch.sum(v, dtype=torch.int32), x)})
+          **times(lambda v: torch.sum(v, dtype=torch.int32), x,
+                   graph=True)})
+    del x
+    cols = fill_columns(1 << 25, dev)
+    for mode, val16, membership in FILL_MODES:
+        args = (*cols, 1 << 24, val16, membership)
+        emit({"root": root_label, "case": f"merge_fill 2^25 {mode}",
+              **times(merge_fill_cuda.merge_fill, *args, graph=True),
+              "kernels_ms": kernels_ms(merge_fill_cuda.merge_fill, *args)})
+    del cols
+    a, b = f32_pair(1 << 24, dev)
+    emit({"root": root_label, "case": "vadd 2^24 f32",
+          **times(vadd_cuda.vadd_pallas, a, b, graph=True),
+          "kernels_ms": kernels_ms(vadd_cuda.vadd_pallas, a, b)})
+    emit({"root": root_label, "case": "vadd 2^24 - 1 f32, off 16 bytes",
+          **times(vadd_cuda.vadd_pallas, a[1:], b[1:], graph=True),
+          "kernels_ms": kernels_ms(vadd_cuda.vadd_pallas, a[1:], b[1:])})
+    emit({"root": root_label, "case": "torch.add 2^24 f32",
+          **times(torch.add, a, b, graph=True)})
 
 
 def sweep_lines(dev, emit) -> None:

@@ -614,6 +614,96 @@ def test_merge_fill(cuda, rng, n, mode):
         assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
 
 
+FILL_TILE = 8192  # rows a block of csrc/merge_fill.cu scans
+FILL_MODES = ("val32", "val16", "membership")
+
+
+def _fill_columns(rng, n, device):
+    """(sk, sa, dv): random int32 bit patterns, EMPTY keys first, half of
+    the rows queries (bit 31 of sa)."""
+    sk = _t(rng.integers(-(2**31), 2**31, n), device)
+    sk[: min(n, 2)] = -1
+    return (sk, _t(rng.integers(-(2**31), 2**31, n), device),
+            _t(rng.integers(-(2**31), 2**31, n), device))
+
+
+def _fill_kw(mode):
+    return dict(val16=mode == "val16", membership=mode == "membership")
+
+
+def _same_fill(got, exp):
+    return torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+
+
+@pytest.mark.parametrize("mode", FILL_MODES)
+@pytest.mark.parametrize("n", [FILL_TILE - 1, FILL_TILE, FILL_TILE + 1,
+                               33 * FILL_TILE + 5, (1 << 25) + 3])
+def test_merge_fill_tile_boundaries(cuda, rng, n, mode):
+    cols = _fill_columns(rng, n, cuda)
+    for nq in (n // 3, 2**30 - 1):
+        assert _same_fill(
+            merge_fill_cuda.merge_fill(*cols, nq, **_fill_kw(mode)),
+            merge_fill_cuda.merge_fill_plain(*cols, nq, **_fill_kw(mode)))
+
+
+@pytest.mark.parametrize("mode", FILL_MODES)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_merge_fill_of_views_off_16_bytes(cuda, rng, offset, mode):
+    """Each column in turn starts 4, 8 or 12 bytes past a 16-byte boundary:
+    every tile takes the scalar loads."""
+    n = 5 * FILL_TILE + 77
+    cols = _fill_columns(rng, n, cuda)
+    for i in range(3):
+        moved = list(cols)
+        moved[i] = torch.cat([torch.zeros(offset, dtype=torch.int32,
+                                          device=cuda), cols[i]])[offset:]
+        assert _same_fill(
+            merge_fill_cuda.merge_fill(*moved, n // 2, **_fill_kw(mode)),
+            merge_fill_cuda.merge_fill_plain(*cols, n // 2, **_fill_kw(mode)))
+
+
+def test_merge_fill_back_to_back(cuda, rng):
+    """Five calls of mixed sizes and modes queued on one stream: each finds
+    the counters and status words the one before left at 0."""
+    calls = [(_fill_columns(rng, n, cuda), n // 2, mode) for n, mode in (
+        ((1 << 22) + 1, "val32"), (3, "val16"), (1_000_003, "membership"),
+        (FILL_TILE, "val32"), ((1 << 20) + 9, "val16"))]
+    torch.cuda.synchronize()
+    got = [merge_fill_cuda.merge_fill(*c, nq, **_fill_kw(m))
+           for c, nq, m in calls]
+    for g, (c, nq, m) in zip(got, calls):
+        assert _same_fill(g, merge_fill_cuda.merge_fill_plain(
+            *c, nq, **_fill_kw(m)))
+
+
+def test_merge_fill_on_two_streams(cuda, rng):
+    """Two streams at once, each with its own scratch, behind a sleep so
+    that their calls overlap on the card."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    cols = [_fill_columns(rng, (1 << 22) + 7 * i, cuda) for i in range(2)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for rep in range(3):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                if rep == 0:
+                    torch.cuda._sleep(5_000_000)
+                got[i].append(merge_fill_cuda.merge_fill(
+                    *cols[i], 1 << 20, **_fill_kw(FILL_MODES[rep])))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for rep, g in enumerate(got[i]):
+            assert _same_fill(g, merge_fill_cuda.merge_fill_plain(
+                *cols[i], 1 << 20, **_fill_kw(FILL_MODES[rep])))
+
+
+@pytest.mark.parametrize("mode", FILL_MODES)
+def test_merge_fill_is_one_kernel_and_no_memset(cuda, rng, mode):
+    cols = _fill_columns(rng, 1 << 25, cuda)
+    assert device_ops(merge_fill_cuda.merge_fill, *cols, 1 << 24,
+                      mode == "val16", mode == "membership") == (1, 0)
+
+
 @pytest.mark.parametrize("n", [0, 1, 3, 4, 4097, 1_000_003, 1 << 24])
 def test_reduce_sum(cuda, rng, n):
     x = _t(rng.integers(-(2**31), 2**31, n + 1), cuda)
@@ -791,6 +881,40 @@ def test_vadd(cuda, rng, dtype, n):
         assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
     m = a[:-1].view(-1, 1) if n > 1 else a[:1]
     assert vadd_cuda.vadd_pallas(m, m).shape == m.shape
+
+
+VADD_TILE = 2048  # values a block of csrc/vadd.cu adds
+
+
+def _vadd_inputs(rng, dtype, n, device):
+    if dtype == torch.float32:
+        return tuple(torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to(device) for _ in range(2))
+    return tuple(_t(rng.integers(-(2**31), 2**31, n), device)
+                 for _ in range(2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("n", [VADD_TILE - 1, VADD_TILE, VADD_TILE + 1,
+                               5 * VADD_TILE + 3, 5 * VADD_TILE + 4,
+                               (1 << 24) + 1])
+def test_vadd_tile_boundaries(cuda, rng, dtype, n):
+    """Aligned inputs (the vector path and its scalar tail) and inputs 4-12
+    bytes off a 16-byte boundary (the scalar path)."""
+    a, b = _vadd_inputs(rng, dtype, n + 3, cuda)
+    for off in range(4):
+        x, y = a[off: off + n], b[off: off + n]
+        got = vadd_cuda.vadd_pallas(x, y)
+        assert torch.equal(got.view(torch.int32),
+                           vadd_cuda.vadd_plain(x, y).view(torch.int32))
+
+
+@pytest.mark.parametrize("off", [0, 1])
+def test_vadd_is_one_kernel(cuda, rng, off):
+    a, b = _vadd_inputs(rng, torch.float32, (1 << 24) + 1, cuda)
+    n = (1 << 24) - 5
+    assert device_ops(vadd_cuda.vadd_pallas, a[off: off + n],
+                      b[off: off + n]) == (1, 0)
 
 
 @pytest.mark.parametrize("n_steps", [1, 2, 64, 1000, 1 << 16])

@@ -242,6 +242,117 @@ def test_fill_twin_matches_pallas(merged_2p15, val16, memb):
     assert int((small != -1).sum()) == 5
 
 
+def _look_back_views(seed, p_prefix=0.3):
+    """What a look-back reads of its predecessors: at the first read of a
+    window, a predecessor is unpublished or torn one time in five each;
+    from then on its aggregate, or with ``p_prefix`` its inclusive prefix,
+    fixed for each (tile, predecessor)."""
+    rng = np.random.default_rng(seed)
+    final = {}
+
+    def seen(tile, pred, attempt):
+        if attempt == 0:
+            r = rng.random()
+            if r < 0.4:
+                return "none" if r < 0.2 else "torn"
+        if (tile, pred) not in final:
+            final[tile, pred] = ("prefix" if rng.random() < p_prefix
+                                 else "aggregate")
+        return final[tile, pred]
+
+    return seen
+
+
+FILL_MODES = [(True, False), (False, False), (False, True)]
+
+
+@pytest.fixture(scope="module")
+def pallas_fill(merged_2p15):
+    sk, sa, sdv, nq = merged_2p15
+    return {(val16, memb): tuple(np.asarray(r) for r in merge_fill_pallas(
+        jnp.asarray(sk), jnp.asarray(sa), jnp.asarray(sdv), nq, val16=val16,
+        membership=memb, interpret=True)) for val16, memb in FILL_MODES}
+
+
+@pytest.mark.parametrize("val16,memb", FILL_MODES)
+@pytest.mark.parametrize("warps,vecs,lanes,window,views", [
+    (16, 4, 32, 32, None),  # the kernel's tile, every predecessor a prefix
+    (16, 4, 32, 32, 1),  # the kernel's tile and window
+    (1, 1, 2, 4, 2),  # 8-row tiles
+    (2, 1, 2, 32, 3),  # 16
+    (1, 2, 4, 3, 4),  # 32
+    (2, 2, 4, 32, 5),  # 64
+])
+def test_lookback_schedule_matches_pallas(merged_2p15, pallas_fill, val16,
+                                          memb, warps, vecs, lanes, window,
+                                          views):
+    """The kernel's schedule (per-tile pair aggregates, the look-back's
+    combine up to the nearest inclusive prefix, the in-tile exclusive scan)
+    at small tiles, with predecessors unpublished, torn, aggregates or
+    prefixes, equals the Pallas kernel bit for bit."""
+    sk, sa, sdv, nq = merged_2p15
+    seen = None if views is None else _look_back_views(views)
+    dest, val, reads = merge_fill_cuda._lookback_fill(
+        _t(sk), _t(sa), _t(sdv), nq, val16, memb, warps=warps, vecs=vecs,
+        lanes=lanes, window=window, seen=seen)
+    rdest, rval = pallas_fill[val16, memb]
+    assert np.array_equal(_u32(dest), rdest)
+    assert np.array_equal(_u32(val), rval)
+    if views is not None and warps * vecs * lanes * 4 <= 64:  # many tiles
+        assert reads["torn"] and reads["none"] and reads["aggregate"]
+
+
+@pytest.mark.parametrize("mode", ["val32", "val16", "membership"])
+@pytest.mark.parametrize("n", [0, 1, 7, 9, 15, 17, 63, 65, 1000, 4099])
+def test_lookback_schedule_any_length(rng, n, mode):
+    """Odd lengths fill the last 16-row tile with the identity; the
+    schedule equals the plain twin."""
+    sk = _t(rng.integers(0, 2**32, n, dtype=np.uint64))
+    sk[: min(n, 2)] = -1  # EMPTY rows
+    sa = _t(rng.integers(0, 2**32, n, dtype=np.uint64))
+    dv = _t(rng.integers(0, 2**32, n, dtype=np.uint64))
+    kw = dict(val16=mode == "val16", membership=mode == "membership")
+    got = merge_fill_cuda._lookback_fill(
+        sk, sa, dv, n // 2, **kw, warps=2, vecs=1, lanes=2, window=4,
+        seen=_look_back_views(n))
+    exp = merge_fill_cuda.merge_fill_plain(sk, sa, dv, n // 2, **kw)
+    assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+
+
+def test_lookback_rereads_torn_status_words(rng):
+    """A predecessor whose two words carry different flags (the sum word of
+    its prefix, the max word of its aggregate) is read again until they
+    agree; taking the torn pair would mix a prefix's sum with an
+    aggregate's max. Groups of three 8-row tiles: 8 table rows, then two
+    tiles of queries for the last of them, so the second query tile finds
+    its key only through the prefix of a tile with no table row (aggregate
+    max 0)."""
+    groups, tile = 13, 8
+    keys = (100 * np.arange(groups)[:, None] + np.arange(3 * tile)).clip(
+        max=100 * np.arange(groups)[:, None] + tile - 1)
+    qidx = np.arange(groups * 2 * tile, dtype=np.uint32).reshape(groups, -1)
+    aux = np.concatenate([rng.integers(0, 2**16, (groups, tile)),
+                          TAG | qidx], 1)
+    sk, sa = _t(keys.ravel()), _t(aux.ravel())
+    n = sk.numel()
+    torn_reads = 3
+
+    def seen(tile, pred, attempt):
+        if pred == tile - 1 and attempt < torn_reads:
+            return "torn"
+        return "aggregate" if pred else "prefix"
+
+    exp = merge_fill_cuda.merge_fill_plain(sk, sa, None, n, val16=True)
+    dest, val, reads = merge_fill_cuda._lookback_fill(
+        sk, sa, None, n, val16=True, warps=1, vecs=1, lanes=2, window=4,
+        seen=seen)
+    assert torch.equal(dest, exp[0]) and torch.equal(val, exp[1])
+    assert reads["torn"] == torn_reads * (n // 8 - 1)
+    agg, inc = (5, 7), (105, 9)
+    s, m = merge_fill_cuda._status_words("torn", agg, inc)
+    assert s >> 32 != m >> 32 and (s & 0xFFFFFFFF, m & 0xFFFFFFFF) == (105, 7)
+
+
 def test_fill_any_length():
     """The CUDA fill takes any N: the twin on an odd length equals the
     contract's scalar reference."""
