@@ -18,8 +18,11 @@ with nvcc, then:
      larger; for the lock kernel, one assumed L2 round trip per serialized
      acquisition); cumsum and weighted_histogram and their library calls
      are also timed with the L2 flushed before each call, and merge_bitonic,
-     merge_fill, reduce_sum and vadd as replays of a captured CUDA graph; a
-     profiler time below the bound is flagged; cumsum runs with an int
+     merge_fill, reduce_sum and vadd as replays of a captured CUDA graph;
+     filter, compact_mask and scan_tail_streams both ways, compact_mask also
+     at the merge probe's 2^25 rows x 2 columns and x 1 (membership) and at
+     the CSR build's 2^20 x 2; a profiler time below the bound is flagged
+     (every timed case is in its name's ``cases``); cumsum runs with an int
      carry under CUDA's sync debug mode, and both under a non-default
      stream; merge_bitonic at every N = 2^k up to 2^22 (2 and 4 columns,
      num_cmp 1 and 2); merge_fill at its tile boundaries, on misaligned
@@ -28,8 +31,10 @@ with nvcc, then:
      its tile boundaries, aligned and misaligned; the CUDA kernels and
      memsets one call puts on the card, counted as the nodes of a captured
      CUDA graph, must be one a pass of the plan for merge_bitonic at 2^25
-     (3) and one kernel and no memset for merge_fill in each mode,
-     reduce_sum and vadd, aligned or not;
+     (3), one kernel and no memset for merge_fill in each mode, reduce_sum,
+     vadd (aligned or not), compact_mask (1-3 columns) and filter, and two
+     kernels and no memset for scan_tail_streams; the three compactions run
+     back to back on one stream and three times on each of two streams;
   3. drives the dwarfs through the CLI entry point with ``--device=gpu``
      (Radix 2^22, GroupBy 2^22 with G=64, GroupBy 2^20 with G=2^16,
      JoinOmnisci 2^20, TwoPassScan, DPLScan and DPLScanCuda 2^24,
@@ -288,8 +293,11 @@ def phase_kernels(dev):
     from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
     from dwarf_bench_tpu_torch.utils.kernel_times import (
         cold_ms,
+        copy_if_bytes,
+        csr_build_compaction,
         device_ops,
         graph_ms,
+        mask_bytes,
     )
     from dwarf_bench_tpu_torch.utils.timing import kernel_time, sync
 
@@ -299,7 +307,7 @@ def phase_kernels(dev):
                     "device_ms": None, "library_device_ms": None,
                     "cold_ms": None, "library_cold_ms": None,
                     "graph_ms": None, "library_graph_ms": None,
-                    "device_below_bound": None}
+                    "device_below_bound": None, "cases": []}
              for name in KERNELS}
 
     def t(a):
@@ -309,7 +317,8 @@ def phase_kernels(dev):
         return [], [(res, res.numel())]
 
     def run(name, label, kernel, plain, *args, view=whole, timed=False,
-            cost=None, library=None, cold=False, graph=False):
+            cost=None, library=None, cold=False, graph=False,
+            library_graph=True):
         """Kernel against twin on ``args``. ``view`` maps a result to
         (counts, [(tensor, slots that hold data)]): a compaction's output is
         garbage past its count, so only the twin's slots are compared. A
@@ -320,8 +329,11 @@ def phase_kernels(dev):
         before each bracket (``kernel_times.cold_ms``); a ``graph`` one
         (a call with no read back to the host) also times both as replays
         of a captured CUDA graph (``kernel_times.graph_ms``), which no
-        trace can thin out. A profiler time below the bound is flagged:
-        the trace lost kernels, or the inputs sat in the L2."""
+        trace can thin out (the library call too, unless
+        ``library_graph`` is False: a call that reads back to the host
+        cannot be captured). A profiler time below the bound is flagged:
+        the trace lost kernels, or the inputs sat in the L2. Every timed
+        case of a name is kept in its ``cases``."""
         res = sync(kernel(*args))
         got_counts, got = view(res)
         exp_counts, exp = view(sync(plain(*args)))
@@ -352,17 +364,19 @@ def phase_kernels(dev):
             graph_k = graph_lib = None
             if graph:
                 graph_k = graph_ms(kernel, *args)
-                graph_lib = None if library is None else graph_ms(library,
-                                                                  *args)
+                if library is not None and library_graph:
+                    graph_lib = graph_ms(library, *args)
             bound_ms, bound_by = bound(*cost(res))
             below = dev_ms is not None and dev_ms < bound_ms
+            times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                         cold_ms=cold_k, library_cold_ms=cold_lib,
+                         graph_ms=graph_k, library_graph_ms=graph_lib,
+                         device_below_bound=below)
             if st["ms"] is None:
-                st.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          device_ms=dev_ms, library_device_ms=lib_dev_ms,
-                          cold_ms=cold_k, library_cold_ms=cold_lib,
-                          graph_ms=graph_k, library_graph_ms=graph_lib,
-                          device_below_bound=below)
+                st.update(times)
+            st["cases"].append({"label": label, **times})
             line += (f" kernel_ms={ms!r} device_ms={dev_ms!r} "
                      f"plain_ms={plain_ms!r} library_ms={lib_ms!r} "
                      f"library_device_ms={lib_dev_ms!r} "
@@ -558,28 +572,30 @@ def phase_kernels(dev):
     deep_x[rng.integers(0, 1 << 20, 1000)] = -700  # out-of-window singles
 
     def copy_if_cost(n):
-        """Cost of the filter over n rows: x read, the kept rows and the
-        count written; a compare and a scan step a row."""
-        return lambda res: (4 * n + 4 * int(res[1]) + 4, 2 * n)
+        """Cost of the filter over n rows (kernel_times.copy_if_bytes); a
+        compare and a scan step a row."""
+        return lambda res: (copy_if_bytes(n, int(res[1])), 2 * n)
 
     def mask_cost(n, ncols):
-        """Cost of compact_mask over n rows: the bool mask read, and only
-        the kept rows of each column read and written (this run's data
-        needs no other column value)."""
-        return lambda res: (n + 8 * ncols * int(res[1]) + 4, 2 * n)
+        """Cost of compact_mask over n rows (kernel_times.mask_bytes: this
+        run's data needs no column value but the kept rows', up to the
+        capacity); a compare and a scan step a row."""
+        return lambda res: (mask_bytes(n, ncols, min(int(res[1]),
+                                                     res[0][0].numel())), 2 * n)
 
     f, fp = filter_cuda.filter, filter_cuda.filter_plain
 
     def masked_select(x, thr, _):
         return torch.masked_select(x, x < thr)
 
+    # masked_select reads its count back to the host: no graph of it
     run("filter", "x<5 n=2^24", f, fp, scan_x, 5, scan_n,
         view=counted(scan_n), timed=True, cost=copy_if_cost(scan_n),
-        library=masked_select)
+        library=masked_select, cold=True, graph=True, library_graph=False)
     run("filter", "x<5000 n=2^20 (sel50)", f, fp,
         t(make_random(1 << 20, seed=8)), 5000, 1 << 20,
         view=counted(1 << 20), timed=True, cost=copy_if_cost(1 << 20),
-        library=masked_select)
+        library=masked_select, cold=True, graph=True, library_graph=False)
     run("filter", "n=1", f, fp, t([4]), 5, 1, view=counted(1))
     run("filter", "nothing kept", f, fp, t(rng.integers(5, 10000, 70_001)),
         5, 70_001, view=counted(70_001))
@@ -607,7 +623,7 @@ def phase_kernels(dev):
 
     run("scan_tail_streams", "chunk_stats of the 2^24 scan", st, stp,
         stat, base, 5, 16384, 512, view=tail(16384, 512), timed=True,
-        cost=tail_cost(scan_n // 128, 16384))
+        cost=tail_cost(scan_n // 128, 16384), cold=True, graph=True)
     dstat, dbase = chunk_stats(t(deep_x).view(-1, 128), 5)
     run("scan_tail_streams", "out-of-window singles", st, stp,
         dstat, dbase, 5, 16384, 512, view=tail(16384, 512))
@@ -621,18 +637,24 @@ def phase_kernels(dev):
     def masked_selects(mask, cols, _):
         return [torch.masked_select(c, mask) for c in cols]
 
+    timed_mask = dict(timed=True, library=masked_selects, cold=True,
+                      graph=True, library_graph=False)
     run("compact_mask", "65536 rows x 2 cols, capacity 4096", cm, cmp, gm,
         (t(rng.integers(0, scan_n, 65536)), t(rng.integers(1, 5, 65536))),
-        4096, view=counted(4096), timed=True,
-        cost=mask_cost(65536, 2), library=masked_selects)
+        4096, view=counted(4096), cost=mask_cost(65536, 2), **timed_mask)
     scan_mask = scan_x < 5
     run("compact_mask", "2^24 rows x 1 col", cm, cmp, scan_mask, (scan_x,),
-        scan_n, view=counted(scan_n), timed=True,
-        cost=mask_cost(scan_n, 1), library=masked_selects)
+        scan_n, view=counted(scan_n), cost=mask_cost(scan_n, 1),
+        **timed_mask)
     run("compact_mask", "2^24 rows x 3 cols", cm, cmp, scan_mask,
         (scan_x, scan_x + 1, scan_x - 1), scan_n, view=counted(scan_n),
-        timed=True, cost=mask_cost(scan_n, 3),
-        library=masked_selects)
+        cost=mask_cost(scan_n, 3), **timed_mask)
+    # the general CSR join's build: the segment starts of 2^20 sorted keys
+    csr_mask, csr_cols, csr_cap = csr_build_compaction(dev)
+    run("compact_mask", "2^20 rows x 2 cols (CSR build)", cm, cmp, csr_mask,
+        csr_cols, csr_cap, view=counted(csr_cap),
+        cost=mask_cost(1 << 20, 2), **timed_mask)
+    del csr_mask, csr_cols
     def ones(n, keep):
         return torch.full((n,), keep, dtype=torch.bool, device=dev)
 
@@ -643,6 +665,7 @@ def phase_kernels(dev):
     run("compact_mask", "everything kept, count > capacity", cm, cmp,
         ones(100_003, True), (t(rng.integers(i32min, i32max, 100_003)),) * 3,
         4096, view=counted(4096))
+    compaction_checks(dev, rng, t, scan_x, stat, base)
 
     e, ep = compact_cuda.emit_prefix, compact_cuda.emit_prefix_plain
     def copy_prefix(v, capacity):
@@ -757,6 +780,18 @@ def phase_kernels(dev):
               f"{ops[0]!r}, memsets {ops[1]!r}", flush=True)
         check(ops == (1, 0), f"merge_fill at 2^25 {mode}: {ops} kernels and "
                              "memsets a call, expected 1 and 0")
+    # the probe's compaction before the unsort, as merge_lookup_bitonic
+    # runs it: 2^25 merged rows, the 2^24 queries kept (half of them)
+    for label, cols, membership in (("2^25 rows x 2 cols (probe)", m32, False),
+                                    ("2^25 rows x 1 col (probe, membership)",
+                                     mm, True)):
+        dest, val = mf(cols[0], cols[1], None if membership else cols[2], nq,
+                       False, membership)
+        kept = (dest,) if membership else (dest, val)
+        run("compact_mask", label, cm, cmp, dest != -1, kept, nq,
+            view=counted(nq), cost=mask_cost(1 << 25, len(kept)),
+            **timed_mask)
+        del dest, val, kept
     del in16, in32, inm, m16, m32, mm
     # any length, the tile boundaries (8192 rows a block) and 2^25 + 3
     fill_tile = 8192
@@ -1075,6 +1110,90 @@ def phase_kernels(dev):
             fn, plain, t(rng.integers(-5, 64 + 5, odd)),
             t(rng.integers(i32min, i32max, odd, endpoint=True)))
     return stats
+
+
+def compaction_checks(dev, rng, t, scan_x, stat, base):
+    """The one-pass compaction (csrc/compact.cuh) behind compact_mask, the
+    filter and the scan tail: the kernels and memsets a call puts on the
+    card (one and none for compact_mask with 1-3 columns and the filter, two
+    and none for the scan tail, whose second fills the sentinel); then calls
+    of all three queued back to back on one stream, each finding the shared
+    scratch the one before left at 0, and three on each of two streams
+    behind a sleep, each stream with its own scratch; each held exactly to
+    its twin."""
+    from dwarf_bench_tpu_torch.ops import compact_cuda, filter_cuda, \
+        scan_tail_cuda
+    from dwarf_bench_tpu_torch.utils.kernel_times import device_ops
+
+    cm, f, st = (compact_cuda.compact_mask, filter_cuda.filter,
+                 scan_tail_cuda.scan_tail_streams)
+    scan_mask = scan_x < 5
+    cases = [(f"compact_mask [2^24 x {k} cols]", cm, (scan_mask,
+                                                       (scan_x,) * k), (1, 0))
+             for k in (1, 2, 3)]
+    cases += [("filter [2^24 x<5]", f, (scan_x, 5), (1, 0)),
+              ("scan_tail_streams [2^17 chunks]", st,
+               (stat, base, 5, 16384, 512), (2, 0))]
+    for label, fn, args, want in cases:
+        ops = device_ops(fn, *args)
+        print(f"kernel {label}: kernels per call {ops[0]!r}, memsets "
+              f"{ops[1]!r}", flush=True)
+        check(ops == want, f"{label}: {ops} kernels and memsets a call, "
+                           f"expected {want}")
+
+    def same(label, got, exp, caps):
+        """Counts equal, and every output in the slots below its count (spos
+        whole: the sentinel past n_single)."""
+        if len(got) == 6:  # the scan tail
+            ns, nm = (int(v) for v in exp[4:])
+            ks, km = min(ns, caps[0]), min(nm, caps[1])
+            ok = [int(v) for v in got[4:]] == [ns, nm] and torch.equal(
+                got[0], exp[0]) and all(torch.equal(g[:k], e[:k]) for g, e, k
+                                        in zip(got[1:4], exp[1:4],
+                                               (ks, km, km)))
+        else:
+            gouts, gcount = got
+            eouts, ecount = exp
+            gouts = gouts if isinstance(gouts, tuple) else (gouts,)
+            eouts = eouts if isinstance(eouts, tuple) else (eouts,)
+            k = min(int(ecount), caps[0])
+            ok = int(gcount) == int(ecount) and all(
+                torch.equal(g[:k], e[:k]) for g, e in zip(gouts, eouts))
+        check(ok, f"{label}: differs from the twin")
+
+    plain = {cm: compact_cuda.compact_mask_plain,
+             f: filter_cuda.filter_plain,
+             st: scan_tail_cuda.scan_tail_streams_plain}
+    wide = t(rng.integers(1, 10000, (1 << 22) + 9, endpoint=True))
+    calls = [(f, (scan_x, 5, 1 << 24), (1 << 24,)),
+             (cm, (wide < 5000, (wide, wide + 1), 1000), (1000,)),
+             (st, (stat, base, 5, 7, 3), (7, 3)),
+             (f, (wide[1:8193], 5000, 8192), (8192,)),
+             (cm, (wide[3:] < 9000, (wide[3:],), None), (wide.numel() - 3,))]
+    torch.cuda.synchronize()
+    outs = [fn(*args) for fn, args, _ in calls]
+    for got, (fn, args, caps) in zip(outs, calls):
+        same("back to back on one stream", got, plain[fn](*args), caps)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    xs = [wide, scan_x[:(1 << 22) + 5]]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for i, s in enumerate(streams):
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(5_000_000)
+            outs[i] = [f(xs[i], 5000), st(stat, base, 5, 16384, 512),
+                       cm(xs[i] < 7000, (xs[i], xs[i] - 1))]
+    torch.cuda.synchronize()
+    for i, x in enumerate(xs):
+        n = x.numel()
+        same(f"stream {i}", outs[i][0], filter_cuda.filter_plain(x, 5000),
+             (n,))
+        same(f"stream {i}", outs[i][1], plain[st](stat, base, 5, 16384, 512),
+             (16384, 512))
+        same(f"stream {i}", outs[i][2], compact_cuda.compact_mask_plain(
+            x < 7000, (x, x - 1)), (n,))
+    print("kernel filter, compact_mask, scan_tail_streams [back to back x 5, "
+          "two streams x 3]: max_abs_err=0", flush=True)
 
 
 def config4_data():
@@ -1694,8 +1813,9 @@ def main() -> int:
 
     print("device_ms below bound_ms (a trace lost kernels, or the inputs sat "
           "in the L2): " + json.dumps(
-              [name for name in KERNELS if stats[name]["device_below_bound"]]),
-          flush=True)
+              [f"{name} [{case['label']}]" for name in KERNELS
+               for case in stats[name]["cases"]
+               if case["device_below_bound"]]), flush=True)
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **stats[name]}

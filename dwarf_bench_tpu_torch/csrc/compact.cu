@@ -4,9 +4,12 @@
 // compact_mask_pallas (kernel _compact_mask_call, :61): copy_if of each
 // column by one mask, keeping order, into `capacity` slots, with the full
 // count. One set of ranks (compact.cuh) serves every column, as the TPU
-// kernel's one set of butterfly routing decisions does. The mask is one byte
-// a row (torch.bool). Bound by reading the mask twice; the columns are read
-// only at kept rows.
+// kernel's one set of butterfly routing decisions does: one launch, the
+// mask read once (4 bytes a lane where it is 4-byte aligned, one otherwise),
+// the columns read only at kept rows. The mask is one byte a row
+// (torch.bool). Bound by device-memory bandwidth: the mask, and the kept rows
+// of each column read and written. At half density every 32-byte sector of a
+// column holds a kept row, so the card reads the columns whole.
 //
 // dbt_emit_prefix replaces compact_pallas.py:225 emit_prefix_pallas: the
 // first `len` values into slots [0, len) of an uninitialised buffer, the rest
@@ -17,6 +20,10 @@
 namespace {
 
 struct MaskOp {
+  static constexpr int kVecs = 4;
+  // three blocks an SM (40 registers): its rows are a byte each, so the
+  // bytes in flight are the resident blocks' column reads
+  static constexpr int kMinBlocks = 3;
   using Item = uint8_t;
   const uint8_t* mask;
   const int32_t* col[3];
@@ -25,13 +32,43 @@ struct MaskOp {
   int64_t cap[1];
 
   __device__ Item load(int64_t i) const { return mask[i]; }
+  __device__ void load4(int64_t i, Item (&it)[4]) const {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(mask + i);
+    it[0] = w & 0xFFu;
+    it[1] = (w >> 8) & 0xFFu;
+    it[2] = (w >> 16) & 0xFFu;
+    it[3] = w >> 24;
+  }
   __device__ void flags(Item m, bool (&keep)[1]) const { keep[0] = m != 0; }
-  __device__ void emit(Item, int64_t i, int, int64_t pos) const {
-    // unrolled, so the pointer arrays are indexed by constants and stay in
-    // registers (a loop bound by ncols put a copy of the Op on the stack)
+  __device__ void prefetch(int64_t i) const {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      if (c < ncols) out[c][pos] = col[c][i];
+      if (c < ncols) {
+        asm volatile("prefetch.global.L2 [%0];" : : "l"(col[c] + i));
+      }
+    }
+  }
+  // a kept row stages its index; the columns are read at it when written
+  struct Value {
+    int32_t v[3];
+  };
+  __device__ uint32_t stage(Item, int64_t i, int) const {
+    return static_cast<uint32_t>(i);
+  }
+  // unrolled, so the pointer arrays are indexed by constants and stay in
+  // registers (a loop bound by ncols put a copy of the Op on the stack)
+  __device__ Value fetch(uint32_t row, int) const {
+    Value r{};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (c < ncols) r.v[c] = col[c][row];
+    }
+    return r;
+  }
+  __device__ void store(const Value& r, int, int64_t pos) const {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (c < ncols) out[c][pos] = r.v[c];
     }
   }
 };
@@ -47,13 +84,16 @@ __global__ void copy_prefix(const int32_t* __restrict__ v, int64_t len,
 
 }  // namespace
 
-// int32 scratch words per stream that a compaction of n rows needs.
-extern "C" int64_t dbt_compact_tiles(int64_t n) {
-  return dbt::compaction_tiles(n);
+// int32 scratch words that a compaction of n rows into `streams` streams
+// (dbt_compact_mask and dbt_filter: 1, dbt_scan_tail_streams: 2) needs.
+extern "C" int64_t dbt_compact_scratch(int64_t n, int32_t streams) {
+  return dbt::compaction_scratch_words(n, streams);
 }
 
 // cols/outs hold ncols (1-3) pointers; unused ones may be null. count points
-// to one int32 on the device; scratch holds dbt_compact_tiles(n) words.
+// to one int32 on the device; scratch holds dbt_compact_scratch(n, 1) int32
+// words, 8-byte aligned and zero, and is left zero, so one buffer serves
+// every call on a stream. n is below 2^31.
 extern "C" int dbt_compact_mask(const uint8_t* mask, const int32_t* c0,
                                 const int32_t* c1, const int32_t* c2,
                                 int32_t ncols, int64_t n, int32_t* o0,
@@ -61,8 +101,9 @@ extern "C" int dbt_compact_mask(const uint8_t* mask, const int32_t* c0,
                                 int32_t* count, int32_t* scratch,
                                 void* stream) {
   MaskOp op{mask, {c0, c1, c2}, {o0, o1, o2}, ncols, {capacity}};
+  const bool vec = (reinterpret_cast<uintptr_t>(mask) & 3) == 0;
   return static_cast<int>(dbt::compact_streams<1>(
-      op, n, count, scratch, static_cast<cudaStream_t>(stream)));
+      op, n, vec, count, scratch, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int dbt_emit_prefix(const int32_t* vals, int64_t len, int32_t* out,

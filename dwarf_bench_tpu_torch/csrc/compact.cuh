@@ -1,28 +1,62 @@
-// Order-preserving stream compaction (copy_if) of one or two streams, shared
-// by the filter (filter.cu), the mask compaction (compact.cu) and the scan
-// tail's two chunk streams (scan_tail.cu).
+// Order-preserving stream compaction (copy_if) of one or two streams in one
+// launch, shared by the filter (filter.cu), the mask compaction (compact.cu)
+// and the scan tail's two chunk streams (scan_tail.cu).
 //
 // The TPU kernels this serves (scan_pallas.py filter_pallas,
 // compact_pallas.py _compact_mask_call, scan_tail_pallas.py
 // scan_tail_streams) walk their grid in order and carry the running output
 // offset from one step to the next, compacting each block with roll
 // butterflies. Blocks on the card run in no order, so a block cannot know
-// where its kept rows go until every block before it has counted. Three
-// launches on one stream:
-//   1. tile_counts:  each block counts the kept rows of one tile of kTile
-//                    rows, per stream;
-//   2. tile_offsets: one block turns the counts, in place, into exclusive
-//                    tile offsets and writes each stream's total (its count);
-//   3. tile_scatter: each block reads its tile again and writes kept row r at
-//                    tile offset + rank of r within the tile.
-// Within a tile, warp w owns kItems runs of 32 consecutive rows, so loads
-// coalesce and a row's rank is its warp's offset (one __syncthreads) plus the
-// popcounts of the ballots before it. Output order is input order: no slot is
-// claimed with an atomic. A row whose rank reaches its stream's capacity is
-// not written, and the count stays the full count.
+// where its kept rows go until every block before it has counted. This is
+// Merrill & Garland's single-pass scan with decoupled look-back over the
+// per-stream counts, in one launch (as csrc/cumsum.cu):
+//   - A block takes the next tile of kTile rows from an atomic counter, so
+//     every earlier tile has started and the look-back never waits on a tile
+//     that never runs.
+//   - It reads its rows once, into registers: a lane holds Op::kVecs runs of
+//     4 consecutive rows, each warp a contiguous stretch (cumsum's layout),
+//     read with one vector load a run where the Op's view is aligned and the
+//     warp's stretch is whole, and with scalar loads otherwise, in the same
+//     launch. It classifies each row into its streams.
+//   - A kept row's rank within its warp is the warp's kept rows in earlier
+//     runs, plus those of the lanes below in its run, plus those before it
+//     in its own run. Each lane's counts of a group of 4 runs are packed one
+//     byte a run (at most 128 a warp), so one warp_inclusive_scan a group and
+//     stream ranks 4 runs: no ballot a row. The warp counts are scanned in
+//     shared memory.
+//   - It publishes each stream's count in a 64-bit status word (flag << 32 |
+//     count, one word a stream); warp 0 walks back to each stream's
+//     inclusive prefix (look_back below: with two streams a tile is taken
+//     once the words it needs are published) and publishes the prefixes.
+//   - Each warp then stages its kept rows (Op::stage: a value, or a row
+//     index) in shared memory at their ranks, and writes them out with
+//     consecutive lanes on consecutive slots (Op::fetch, Op::store), so the
+//     stores, and the column reads of the mask compaction, coalesce; a lane
+//     fetches kBatch slots before it stores, so its reads overlap, and the
+//     mask compaction asks the L2 for the columns' kept lines
+//     (Op::prefetch) before its look-back, so their reads overlap the wait.
+//     A slot at or past the stream's capacity is not written.
+//   - The tile that holds the last row (tile 0 when n is 0) writes each
+//     stream's full count. The tile counter, a finished-block counter and
+//     the status words start at zero and the kernel leaves them so: each
+//     block counts itself finished once its look-back is done (an add with
+//     release semantics that it does not wait for), and the block of the
+//     last tile, which starts after every other, waits for the count and
+//     zeroes them. So the wrappers keep one scratch buffer a stream and no
+//     call needs a memset.
+// Output order is input order: no slot is claimed with an atomic. Counts and
+// ranks are 32-bit, so n must be below 2^31.
 //
-// The input is read twice and the kept rows written once, so at low
-// selectivity the compaction is bound by device-memory bandwidth.
+// Bound on the card: device-memory bandwidth. Each input row is read once
+// and each kept row written once; the filter keeps a row's value in
+// registers and shared memory from the read to the write, and the mask
+// compaction reads its columns at kept rows only. A block cannot finish
+// before the slowest of its recent predecessors has read its tile, so each
+// block lives several microseconds and the bytes in flight are the rows
+// that the resident blocks hold in registers: the filter takes 8 runs a
+// lane (16384-row tiles, 64 KB) at two blocks an SM. The mask (one byte a
+// row) and the scan tail's chunks take 4 (8192 rows): their calls on the
+// main path are small, and more, smaller tiles finish sooner there.
 #pragma once
 
 #include "common.cuh"
@@ -30,141 +64,332 @@
 namespace dbt {
 namespace {  // internal linkage: each .cu instantiates its own kernels
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 16;
-constexpr int kTile = kThreads * kItems;
-constexpr int kOffsetThreads = 1024;
+constexpr int kGroupRows = 32 * 4 * 4;  // a warp's rows in a group of 4 runs
+constexpr int kMinTile = kThreads * 4 * 4;  // 8192 rows: 4 runs a lane
+constexpr int kBatch = 4;  // slots a lane fetches before it stores
+static_assert(kWarps <= 32, "one warp scans the warp counts");
 
-inline int64_t compaction_tiles(int64_t n) { return (n + kTile - 1) / kTile; }
+// Status word of a decoupled look-back (Merrill & Garland's single-pass
+// scan): flag << 32 | value, so that one 64-bit store makes both visible
+// together; 0 means "not published yet".
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kPrefix = 2ull << 32;
 
-// An Op of K streams provides
-//   struct Item;                                              one row's data
-//   __device__ Item load(int64_t i) const;
-//   __device__ void flags(const Item&, bool (&keep)[K]) const;
-//   __device__ void emit(const Item&, int64_t i, int s, int64_t pos) const;
-//   int64_t cap[K];                                           slots per stream
-
-// Loads and classifies the calling warp's kItems x 32 rows of the tile: the
-// ballots of each stream and their popcount total (the same in every lane).
-template <int K, class Op>
-__device__ __forceinline__ void classify(const Op& op, int64_t n,
-                                         int64_t first,
-                                         typename Op::Item (&item)[kItems],
-                                         uint32_t (&ballot)[K][kItems],
-                                         int32_t (&total)[K]) {
+// The exclusive prefixes of tile `tile` (> 0) in K independent uint32 sums,
+// read by warp 0 (every lane calls it) from its predecessors' status words,
+// K a tile (sum s of tile t at status[K * t + s]). Lane l reads the tile at
+// distance l + 1, 32 tiles a round trip to the L2. A sum takes the words up
+// to its nearest inclusive prefix; the window is read again while one of
+// those is unpublished, and moves back 32 tiles while a sum has met no
+// prefix in it. Each sum stops at its own nearest prefix, so a tile may be a
+// prefix in one sum and an aggregate in the other.
+template <int K>
+__device__ __forceinline__ void look_back(
+    const volatile unsigned long long* status, uint32_t tile, int lane,
+    uint32_t (&before)[K]) {
+  constexpr int kNone = 32;  // no such word in the window
+  bool open[K];
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t i = first + 32 * j;
-    bool keep[K] = {};
-    if (i < n) {
-      item[j] = op.load(i);
-      op.flags(item[j], keep);
-    }
+  for (int s = 0; s < K; ++s) {
+    before[s] = 0;
+    open[s] = true;
+  }
+  int64_t last = (int64_t)tile - 1;
+  while (true) {
+    const int64_t idx = last - lane;
+    unsigned long long w[K];
+    int stop[K];  // distance - 1 of each sum's nearest prefix in the window
+    bool waiting;
+    do {
+      waiting = false;
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        w[s] = idx >= 0 ? status[K * idx + s] : kPrefix;
+        const unsigned pre = __ballot_sync(0xffffffffu, (w[s] >> 32) == 2);
+        const unsigned un = __ballot_sync(0xffffffffu, (w[s] >> 32) == 0);
+        stop[s] = pre ? __ffs(pre) - 1 : kNone;
+        waiting |= open[s] && un && __ffs(un) - 1 < stop[s];
+      }
+    } while (waiting);  // uniform across the warp: it comes from ballots
+    bool done = true;
 #pragma unroll
     for (int s = 0; s < K; ++s) {
-      ballot[s][j] = __ballot_sync(0xffffffffu, keep[s]);
-      total[s] += __popc(ballot[s][j]);
+      if (open[s]) {
+        before[s] += __reduce_add_sync(
+            0xffffffffu, lane <= stop[s] ? static_cast<uint32_t>(w[s]) : 0u);
+        open[s] = stop[s] == kNone;
+      }
+      done = done && !open[s];
     }
+    if (done) return;
+    last -= 32;
   }
 }
 
-__device__ __forceinline__ int64_t warp_first_row() {
-  return (int64_t)blockIdx.x * kTile +
-         (int64_t)(threadIdx.x >> 5) * (32 * kItems) + (threadIdx.x & 31);
+// An add at device scope with release semantics that returns nothing: the
+// caller's earlier writes are visible to a thread whose acquiring load
+// (load_acquire) reads the sum. The caller does not wait for it.
+__device__ __forceinline__ void add_release(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
+               :
+               : "l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Rows of a tile of `Op`: kThreads lanes of Op::kVecs runs of 4 rows.
+template <class Op>
+__host__ __device__ constexpr int tile_rows() {
+  static_assert(Op::kVecs % 4 == 0 && Op::kVecs * 4 <= 32,
+                "whole groups of 4 runs, a lane's flags in one word");
+  return kThreads * 4 * Op::kVecs;
+}
+
+// Tiles of a compaction of n rows: one block runs even for n = 0, to write
+// the zero counts.
+inline int64_t compaction_tiles(int64_t n, int64_t tile) {
+  return n > 0 ? (n + tile - 1) / tile : 1;
+}
+
+// int32 scratch words of a compaction of n rows into k streams, for every
+// Op: the two counters, then k 64-bit status words a tile of kMinTile rows.
+inline int64_t compaction_scratch_words(int64_t n, int k) {
+  return 2 + 2 * k * compaction_tiles(n, kMinTile);
+}
+
+// An Op of K streams provides
+//   static constexpr int kVecs;       runs of 4 rows a lane: 4 or 8
+//   static constexpr int kMinBlocks;  blocks an SM (__launch_bounds__)
+//   struct Item;                                           one row's data
+//   __device__ Item load(int64_t i) const;                 row i
+//   __device__ void load4(int64_t i, Item (&it)[4]) const; rows i to i + 3
+//                                (i a multiple of 4; called only when `vec`)
+//   __device__ void flags(const Item&, bool (&keep)[K]) const;
+//   __device__ void prefetch(int64_t i) const;  a run from row i keeps rows:
+//                                bring what fetch will read into the L2
+//   __device__ uint32_t stage(const Item&, int64_t i, int s) const;
+//                                what a warp keeps of kept row i of stream s
+//   struct Value;                                          what a slot gets
+//   __device__ Value fetch(uint32_t staged, int s) const;
+//   __device__ void store(const Value&, int s, int64_t pos) const;
+//   int64_t cap[K];                                        slots per stream
+
+// The sum of the four bytes of a lane's packed counts (up to 512).
+__device__ __forceinline__ uint32_t byte_sum(uint32_t x) {
+  return (x & 0xFFu) + ((x >> 8) & 0xFFu) + ((x >> 16) & 0xFFu) + (x >> 24);
 }
 
 template <int K, class Op>
-__global__ void __launch_bounds__(kThreads)
-    tile_counts(Op op, int64_t n, int32_t* __restrict__ counts,
-                int64_t ntiles) {
-  __shared__ int32_t warp_total[K][kWarps];
-  typename Op::Item item[kItems] = {};
-  uint32_t ballot[K][kItems];
-  int32_t total[K] = {};
-  classify<K>(op, n, warp_first_row(), item, ballot, total);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) warp_total[s][warp] = total[s];
-  }
-  __syncthreads();
-  if (threadIdx.x < K) {
-    int32_t t = 0;
-    for (int w = 0; w < kWarps; ++w) t += warp_total[threadIdx.x][w];
-    counts[threadIdx.x * ntiles + blockIdx.x] = t;
-  }
-}
-
-template <int K>
-__global__ void __launch_bounds__(kOffsetThreads)
-    tile_offsets(int32_t* __restrict__ counts, int64_t ntiles,
-                 int32_t* __restrict__ totals) {
-  for (int s = 0; s < K; ++s) {
-    uint32_t* c = reinterpret_cast<uint32_t*>(counts + s * ntiles);
-    uint32_t carry = 0;
-    for (int64_t b = 0; b < ntiles; b += blockDim.x) {
-      const int64_t i = b + threadIdx.x;
-      const uint32_t v = i < ntiles ? c[i] : 0u;
-      uint32_t total;
-      const uint32_t before = block_exclusive_scan(v, &total);
-      if (i < ntiles) c[i] = carry + before;
-      carry += total;
-    }
-    if (threadIdx.x == 0) totals[s] = static_cast<int32_t>(carry);
-  }
-}
-
-template <int K, class Op>
-__global__ void __launch_bounds__(kThreads)
-    tile_scatter(Op op, int64_t n, const int32_t* __restrict__ offsets,
-                 int64_t ntiles) {
-  __shared__ int32_t warp_total[K][kWarps];
+__global__ void __launch_bounds__(kThreads, Op::kMinBlocks)
+    compact_lookback(Op op, int64_t n, bool vec, int32_t* __restrict__ totals,
+                     unsigned* __restrict__ counters,
+                     unsigned long long* status) {
+  constexpr int kVecs = Op::kVecs;
+  constexpr int kGroups = kVecs / 4;  // a packed word of counts a group
+  constexpr int kWarpRows = kGroups * kGroupRows;
+  constexpr int kTile = tile_rows<Op>();
+  __shared__ uint32_t s_tile;
+  __shared__ uint32_t s_warp[K][kWarps];  // warp counts, then their offsets
+  __shared__ uint32_t s_before[K];
+  __shared__ uint32_t s_stage[kWarps][kGroupRows];  // a group's kept rows
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t first = warp_first_row();
-  typename Op::Item item[kItems] = {};
-  uint32_t ballot[K][kItems];
-  int32_t total[K] = {};
-  classify<K>(op, n, first, item, ballot, total);
-  if (lane == 0) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) warp_total[s][warp] = total[s];
-  }
+  if (threadIdx.x == 0) s_tile = atomicAdd(counters, 1u);
   __syncthreads();
-  const uint32_t lanes_below = (1u << lane) - 1u;
+  const uint32_t tile = s_tile;
+  // lane l's run j holds rows wbase + 4 * (32 * j + l) + [0, 4)
+  const int64_t wbase = (int64_t)tile * kTile + (int64_t)warp * kWarpRows;
+  const bool full = vec && wbase + kWarpRows <= n;
+
+  typename Op::Item item[kVecs][4];
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    const int64_t i = wbase + 4 * (32 * j + lane);
+    if (full) {
+      op.load4(i, item[j]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        item[j][c] = i + c < n ? op.load(i + c) : typename Op::Item{};
+      }
+    }
+  }
+  // bit 4 * j + c of bits[s]: row c of run j is kept in stream s
+  uint32_t bits[K] = {};
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      bool keep[K] = {};
+      if (full || wbase + 4 * (32 * j + lane) + c < n) {
+        op.flags(item[j][c], keep);
+      }
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        bits[s] |= static_cast<uint32_t>(keep[s]) << (4 * j + c);
+      }
+    }
+  }
+  // the reads of the writes below start now, and overlap the look-back
+  uint32_t any = 0;
+#pragma unroll
+  for (int s = 0; s < K; ++s) any |= bits[s];
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    if ((any >> (4 * j)) & 0xFu) op.prefetch(wbase + 4 * (32 * j + lane));
+  }
+
+  // byte jj of word g: the kept rows of run 4 * g + jj in the lanes below
+  // (lane_below) and in the whole warp (warp_runs)
+  uint32_t lane_below[K][kGroups], warp_runs[K][kGroups];
 #pragma unroll
   for (int s = 0; s < K; ++s) {
-    int64_t pos = offsets[s * ntiles + blockIdx.x];
-    for (int w = 0; w < warp; ++w) pos += warp_total[s][w];
 #pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const uint32_t b = ballot[s][j];
-      if ((b >> lane) & 1u) {
-        const int64_t p = pos + __popc(b & lanes_below);
-        if (p < op.cap[s]) op.emit(item[j], first + 32 * j, s, p);
+    for (int g = 0; g < kGroups; ++g) {
+      uint32_t own = 0;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        own |= static_cast<uint32_t>(
+                   __popc((bits[s] >> (16 * g + 4 * jj)) & 0xFu))
+               << (8 * jj);
       }
-      pos += __popc(b);
+      const uint32_t inc = warp_inclusive_scan(own);
+      lane_below[s][g] = inc - own;
+      warp_runs[s][g] = __shfl_sync(0xffffffffu, inc, 31);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      uint32_t count = 0;
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) count += byte_sum(warp_runs[s][g]);
+      s_warp[s][warp] = count;
+    }
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    uint32_t aggregate[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const uint32_t w = lane < kWarps ? s_warp[s][lane] : 0u;
+      const uint32_t winc = warp_inclusive_scan(w);
+      if (lane < kWarps) s_warp[s][lane] = winc - w;
+      aggregate[s] = __shfl_sync(0xffffffffu, winc, 31);
+    }
+    volatile unsigned long long* st = status;
+    uint32_t before[K] = {};
+    if (tile != 0) {
+      if (lane == 0) {
+#pragma unroll
+        for (int s = 0; s < K; ++s) st[K * tile + s] = kAggregate | aggregate[s];
+      }
+      look_back<K>(st, tile, lane, before);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        st[K * tile + s] = kPrefix | (before[s] + aggregate[s]);
+        s_before[s] = before[s];
+        if (tile == gridDim.x - 1) {
+          totals[s] = static_cast<int32_t>(before[s] + aggregate[s]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // every status read of this block is done and its prefixes are stored:
+  // count it finished, without waiting for the add
+  if (threadIdx.x == 0) add_release(counters + 1, 1u);
+
+  uint32_t* stage = s_stage[warp];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    // the slot of the warp's first kept row; a group at a time, the warp
+    // stages its kept rows at their ranks within the group, then writes them
+    int64_t first = (int64_t)s_before[s] + s_warp[s][warp];
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      uint32_t q = 0;  // the group's kept rows in earlier runs
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * g + jj;
+        uint32_t r = q + ((lane_below[s][g] >> (8 * jj)) & 0xFFu);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if ((bits[s] >> (4 * j + c)) & 1u) {
+            stage[r++] =
+                op.stage(item[j][c], wbase + 4 * (32 * j + lane) + c, s);
+          }
+        }
+        q += (warp_runs[s][g] >> (8 * jj)) & 0xFFu;
+      }
+      __syncwarp();
+      // slots first to first + q; a lane fetches kBatch slots' values
+      // before it stores any, so their reads overlap
+      const int64_t room = op.cap[s] - first;
+      const uint32_t end =
+          room < (int64_t)q ? static_cast<uint32_t>(room > 0 ? room : 0) : q;
+      for (uint32_t k = lane; k < end; k += 32 * kBatch) {
+        typename Op::Value v[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          if (k + 32 * b < end) v[b] = op.fetch(stage[k + 32 * b], s);
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          if (k + 32 * b < end) op.store(v[b], s, first + k + 32 * b);
+        }
+      }
+      first += q;
+      __syncwarp();  // the stage is refilled by the next group
+    }
+  }
+
+  // Every block has started once the last tile's has, so the last tile's
+  // block waits for every block to count itself finished, then leaves the
+  // counters and the status words zero.
+  if (tile == gridDim.x - 1) {
+    if (threadIdx.x == 0) {
+      while (load_acquire(counters + 1) < gridDim.x) {
+      }
+    }
+    __syncthreads();
+    for (uint32_t t = threadIdx.x; t < K * gridDim.x; t += kThreads) {
+      status[t] = 0;
+    }
+    if (threadIdx.x == 0) {
+      counters[0] = 0;
+      counters[1] = 0;
     }
   }
 }
 
-// The three launches on `stream`. `totals` (K int32 on the device) receives
-// each stream's count; `scratch` holds K * compaction_tiles(n) int32 words.
+// The one launch on `stream`. `totals` (K int32 on the device) receives each
+// stream's full count; `scratch` holds compaction_scratch_words(n, K) int32
+// words, 8-byte aligned and zero, and is left zero. `vec`: the Op's load4
+// may be used. n is below 2^31.
 template <int K, class Op>
-cudaError_t compact_streams(const Op& op, int64_t n, int32_t* totals,
-                            int32_t* scratch, cudaStream_t stream) {
-  const int64_t ntiles = n > 0 ? compaction_tiles(n) : 0;
-  if (ntiles > 0) {
-    tile_counts<K, Op><<<(unsigned)ntiles, kThreads, 0, stream>>>(
-        op, n, scratch, ntiles);
-  }
-  // with no tiles this only writes zero counts
-  tile_offsets<K><<<1, kOffsetThreads, 0, stream>>>(scratch, ntiles, totals);
-  if (ntiles > 0) {
-    tile_scatter<K, Op><<<(unsigned)ntiles, kThreads, 0, stream>>>(
-        op, n, scratch, ntiles);
-  }
+cudaError_t compact_streams(const Op& op, int64_t n, bool vec,
+                            int32_t* totals, int32_t* scratch,
+                            cudaStream_t stream) {
+  if (n < 0 || n >= (1ll << 31)) return cudaErrorInvalidValue;
+  compact_lookback<K, Op>
+      <<<(unsigned)compaction_tiles(n, tile_rows<Op>()), kThreads, 0,
+         stream>>>(
+          op, n, vec, totals, reinterpret_cast<unsigned*>(scratch),
+          reinterpret_cast<unsigned long long*>(scratch + 2));
   return cudaGetLastError();
 }
 

@@ -12,10 +12,13 @@
 // last (the TPU wrapper does this outside its kernel; here a fourth launch
 // reads n_single on the device). Other columns are garbage past their count.
 //
-// The TPU kernel carries two running offsets through its sequential grid; the
-// two-stream form of compact.cuh keeps two ranks per row instead. At 2^24
-// rows the chunk arrays are 2 x 512 KB, so the tail is launch-bound, not
-// bandwidth-bound.
+// The TPU kernel carries two running offsets through its sequential grid;
+// here the two-stream form of compact.cuh's one-pass compaction ranks every
+// chunk in both streams and looks back over two status words a tile (a kept
+// chunk's stat and base are read again, from the L2, when it is written),
+// then a second launch fills spos past n_single: two launches a call. At
+// 2^24 rows the chunk arrays are 2 x 512 KB, so the tail is launch-bound,
+// not bandwidth-bound.
 #include "compact.cuh"
 
 namespace {
@@ -23,6 +26,8 @@ namespace {
 constexpr int32_t kBig = 0x7FFFFFFF;
 
 struct TailOp {
+  static constexpr int kVecs = 4;
+  static constexpr int kMinBlocks = 2;
   struct Item {
     int32_t stat;
     int32_t base;
@@ -37,22 +42,40 @@ struct TailOp {
   int64_t cap[2];
 
   __device__ Item load(int64_t i) const { return {stat[i], base[i]}; }
+  __device__ void load4(int64_t i, Item (&it)[4]) const {
+    const int4 s = *reinterpret_cast<const int4*>(stat + i);
+    const int4 b = *reinterpret_cast<const int4*>(base + i);
+    it[0] = {s.x, b.x};
+    it[1] = {s.y, b.y};
+    it[2] = {s.z, b.z};
+    it[3] = {s.w, b.w};
+  }
   __device__ void flags(const Item& it, bool (&keep)[2]) const {
     const int32_t cnt = it.stat >> 9;
     const int32_t vsw = it.stat & 511;
     keep[0] = cnt == 1 && vsw >= 1 && vsw <= 255;
     keep[1] = cnt >= 1 && !keep[0];
   }
-  __device__ void emit(const Item& it, int64_t i, int s, int64_t pos) const {
+  // a kept chunk stages its index; its stat and base are read again (from
+  // the L2: 1 MB at 2^17 chunks) when it is written
+  __device__ void prefetch(int64_t) const {}
+  __device__ uint32_t stage(const Item&, int64_t i, int) const {
+    return static_cast<uint32_t>(i);
+  }
+  struct Value {
+    int32_t a, b;  // (spos, sval) or (mids, mbase)
+  };
+  __device__ Value fetch(uint32_t i, int s) const {
     if (s == 0) {
-      spos[pos] = it.base;
       // threshold - vsw, wrapping mod 2^32 as the int32 reference does
-      sval[pos] = static_cast<int32_t>(static_cast<uint32_t>(threshold) -
-                                       static_cast<uint32_t>(it.stat & 511));
-    } else {
-      mids[pos] = static_cast<int32_t>(i);
-      mbase[pos] = it.base;
+      return {base[i], static_cast<int32_t>(static_cast<uint32_t>(threshold) -
+                                            static_cast<uint32_t>(stat[i] & 511))};
     }
+    return {static_cast<int32_t>(i), base[i]};
+  }
+  __device__ void store(const Value& v, int s, int64_t pos) const {
+    (s == 0 ? spos : mids)[pos] = v.a;
+    (s == 0 ? sval : mbase)[pos] = v.b;
   }
 };
 
@@ -70,7 +93,8 @@ __global__ void fill_past_count(int32_t* __restrict__ v, int64_t cap,
 }  // namespace
 
 // counts points to two int32 on the device (n_single, n_multi); scratch holds
-// 2 * dbt_compact_tiles(nch) int32 words.
+// dbt_compact_scratch(nch, 2) int32 words, 8-byte aligned and zero, and is
+// left zero. nch is below 2^31.
 extern "C" int dbt_scan_tail_streams(const int32_t* stat, const int32_t* base,
                                      int64_t nch, int32_t threshold,
                                      int32_t* spos, int32_t* sval,
@@ -81,7 +105,10 @@ extern "C" int dbt_scan_tail_streams(const int32_t* stat, const int32_t* base,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   TailOp op{stat, base, threshold, spos, sval, mids, mbase,
             {cap_single, cap_mc}};
-  const cudaError_t err = dbt::compact_streams<2>(op, nch, counts, scratch, s);
+  const bool vec = ((reinterpret_cast<uintptr_t>(stat) |
+                     reinterpret_cast<uintptr_t>(base)) & 15) == 0;
+  const cudaError_t err =
+      dbt::compact_streams<2>(op, nch, vec, counts, scratch, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (cap_single > 0) {
     fill_past_count<<<dbt::grid_for(cap_single, 256, 4), 256, 0, s>>>(

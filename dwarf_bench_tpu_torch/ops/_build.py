@@ -58,7 +58,7 @@ _SIGNATURES = {
     "dbt_groupby_small": ([_P, _P, _I64, _P, _I32, _P], ctypes.c_int),
     "dbt_cumsum": ([_P, _I64, _P, _I32, _P, _P, _P], ctypes.c_int),
     "dbt_cumsum_scratch": ([_I64], _I64),
-    "dbt_compact_tiles": ([_I64], _I64),
+    "dbt_compact_scratch": ([_I64, _I32], _I64),
     "dbt_filter": ([_P, _I64, _I32, _P, _I64, _P, _P, _P], ctypes.c_int),
     "dbt_compact_mask": (
         [_P, _P, _P, _P, _I32, _I64, _P, _P, _P, _I64, _P, _P, _P],
@@ -267,7 +267,8 @@ def stream_scratch(kind: str, device: torch.device, words: int) -> torch.Tensor:
     one stream runs in order, so a call never overlaps the last call that
     used the buffer; each stream has its own. It saves a torch.empty, and
     its host time, a call; a kernel that needs it zero must leave it zero
-    (``dbt_cumsum`` does, and ``dbt_reduce_sum`` its ticket)."""
+    (``dbt_cumsum`` and the compactions do, and ``dbt_reduce_sum`` its
+    ticket)."""
     index = device.index
     key = (kind, index, torch._C._cuda_getCurrentRawStream(index))
     buf = _STREAM_SCRATCH.get(key)
@@ -279,14 +280,15 @@ def stream_scratch(kind: str, device: torch.device, words: int) -> torch.Tensor:
     return buf
 
 
-def compact_scratch(n: int, streams: int, device: torch.device) -> torch.Tensor:
-    """Scratch for a compaction of ``n`` rows into ``streams`` streams
-    (``csrc/compact.cuh``): one int32 word per tile and stream. Counts and
+@functools.lru_cache(maxsize=256)
+def compact_scratch_words(n: int, streams: int) -> int:
+    """int32 scratch words of a compaction of ``n`` rows into ``streams``
+    streams (``csrc/compact.cuh``: two counters, then one 64-bit status word
+    a tile and stream), for ``stream_scratch("compact", ...)``. Counts and
     ranks are int32, so ``n`` must be below 2^31."""
     if n >= 2**31:
         raise ValueError(f"compaction of {n} rows: counts are int32")
-    words = streams * int(library().dbt_compact_tiles(n))
-    return torch.empty(max(words, 1), dtype=torch.int32, device=device)
+    return int(library().dbt_compact_scratch(n, streams))
 
 
 def check_vectors(op: str, *tensors: torch.Tensor) -> torch.device:

@@ -18,14 +18,17 @@ single. Returns ``(spos, sval, mids, mbase, n_single, n_multi)``:
 function's limit of 2^18 chunks.
 
 A wrapper takes the twin only for a CPU tensor; for a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises: two launches a call (the two-stream
+compaction of ``csrc/compact.cuh``, then the sentinel fill), no memset.
+``_lookback_tail`` runs the compaction's schedule in plain PyTorch
+(``compact_cuda._lookback_compact``) for the tests.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, compact_cuda
 from .primitives import compact_multi
 
 BIG = 0x7FFFFFFF  # position sentinel: sorts after every real position
@@ -44,20 +47,45 @@ def _check(stat, base, threshold, cap_single, cap_mc):
     return device, thr, cap_single, cap_mc
 
 
+def _streams(stat, base, thr: int):
+    """Each chunk's (single, multi) flags and the columns each stream
+    keeps: (base, thr - vsw) and (chunk id, base)."""
+    cnt, vsw = stat >> 9, stat & 511
+    single = (cnt == 1) & (vsw >= 1) & (vsw <= 255)
+    multi = (cnt >= 1) & ~single
+    ids = torch.arange(stat.numel(), dtype=torch.int32, device=stat.device)
+    return (single, multi), ((base, thr - vsw), (ids, base))
+
+
+def _past_count(spos, n_single):
+    """spos with the sentinel past n_single."""
+    iota = torch.arange(spos.numel(), dtype=torch.int32, device=spos.device)
+    return torch.where(iota < n_single, spos, BIG)
+
+
 def scan_tail_streams_plain(stat, base, threshold: int, cap_single: int,
                             cap_mc: int):
     _, thr, cap_single, cap_mc = _check(stat, base, threshold, cap_single,
                                         cap_mc)
-    cnt, vsw = stat >> 9, stat & 511
-    single = (cnt == 1) & (vsw >= 1) & (vsw <= 255)
-    multi = (cnt >= 1) & ~single
-    (spos, sval), n_single = compact_multi((base, thr - vsw), single,
-                                           cap_single)
-    ids = torch.arange(stat.numel(), dtype=torch.int32, device=stat.device)
-    (mids, mbase), n_multi = compact_multi((ids, base), multi, cap_mc)
-    iota = torch.arange(cap_single, dtype=torch.int32, device=stat.device)
-    spos = torch.where(iota < n_single, spos, BIG)
-    return spos, sval, mids, mbase, n_single, n_multi
+    (single, multi), (scols, mcols) = _streams(stat, base, thr)
+    (spos, sval), n_single = compact_multi(scols, single, cap_single)
+    (mids, mbase), n_multi = compact_multi(mcols, multi, cap_mc)
+    return _past_count(spos, n_single), sval, mids, mbase, n_single, n_multi
+
+
+def _lookback_tail(stat, base, threshold: int, cap_single: int, cap_mc: int,
+                   **schedule):
+    """``scan_tail_streams`` by the kernel's schedule, two streams over two
+    status words a tile: ``(spos, sval, mids, mbase, n_single, n_multi,
+    reads)``."""
+    _, thr, cap_single, cap_mc = _check(stat, base, threshold, cap_single,
+                                        cap_mc)
+    keep, cols = _streams(stat, base, thr)
+    ((spos, sval), (mids, mbase)), (n_single, n_multi), reads = \
+        compact_cuda._lookback_compact(torch.stack(keep), cols,
+                                       (cap_single, cap_mc), **schedule)
+    return (_past_count(spos, n_single), sval, mids, mbase, n_single,
+            n_multi, reads)
 
 
 def scan_tail_streams(stat, base, threshold: int, cap_single: int,
@@ -74,7 +102,9 @@ def scan_tail_streams(stat, base, threshold: int, cap_single: int,
     spos, sval, mids, mbase = (empty(cap_single), empty(cap_single),
                                empty(cap_mc), empty(cap_mc))
     counts = empty(2)
-    scratch = _build.compact_scratch(nch, 2, device)
+    # two counters and the status words: zero when made, left zero
+    scratch = _build.stream_scratch("compact", device,
+                                    _build.compact_scratch_words(nch, 2))
     _build.launch("dbt_scan_tail_streams", device, stat.data_ptr(),
                   base.data_ptr(), nch, thr, spos.data_ptr(), sval.data_ptr(),
                   cap_single, mids.data_ptr(), mbase.data_ptr(), cap_mc,

@@ -1,6 +1,6 @@
-"""Times of the cumsum, weighted-histogram, bitonic-merge, sum, merge-fill
-and vadd kernels, their library calls, and the host cost of a kernel launch,
-on one CUDA card.
+"""Times of the cumsum, weighted-histogram, bitonic-merge, sum, merge-fill,
+vadd and compaction kernels, their library calls, and the host cost of a
+kernel launch, on one CUDA card.
 
     python dwarf_bench_tpu_torch/utils/kernel_times.py [--root DIR] [--sweep]
         [--host] [--label NAME]
@@ -11,22 +11,28 @@ one card in one run: run this file from the newer checkout with
 ``--root`` pointing at the older one, in turns. The cases use only the
 wrappers ``cumsum_cuda.cumsum``, ``hist_cuda.weighted_histogram``,
 ``bitonic_cuda.merge_bitonic``, ``reduce_cuda.reduce_sum``,
-``merge_fill_cuda.merge_fill`` and ``vadd_cuda.vadd_pallas``, which both
-have: cumsum at 2^22, the weighted histogram at 2^20, the merge at 2^25 x 2
-and x 3 columns (the config-#4 probe) and 2^21 x 4 (``probe_merge_bitonic``
-of the CSR join at 2^20), the sum at 2^24, the fill at 2^25 in its three
-modes, vadd at 2^24 float32. ``--sweep`` times the weighted histogram under
-every (cluster, copies) plan at the main-path shapes and ``--host`` breaks
-one launch's host time down over 10^4 calls; both need the newer checkout.
-Prints one JSON object a line, each with the card's name and power limit.
+``merge_fill_cuda.merge_fill``, ``vadd_cuda.vadd_pallas``,
+``filter_cuda.filter``, ``compact_cuda.compact_mask`` and
+``scan_tail_cuda.scan_tail_streams``, which both have: cumsum at 2^22, the
+weighted histogram at 2^20, the merge at 2^25 x 2 and x 3 columns (the
+config-#4 probe) and 2^21 x 4 (``probe_merge_bitonic`` of the CSR join at
+2^20), the sum at 2^24, the fill at 2^25 in its three modes, vadd at 2^24
+float32, the filter at 2^24 (x < 5) and 2^20 (x < 5000), compact_mask at
+the scan's 65536 x 2, at 2^24 x 1 and x 3, at the probe's 2^25 x 2 and x 1
+(membership) and at the CSR build's 2^20 x 2, and the scan tail at 2^17
+chunks. ``--sweep`` times the weighted histogram under every (cluster,
+copies) plan at the main-path shapes and ``--host`` breaks one launch's host
+time down over 10^4 calls; ``--sweep`` needs the newer checkout. Prints one
+JSON object a line, each with the card's name and power limit.
 
 Per case: ``events_ms``, the median of CUDA-event brackets around single
 calls (the host's dispatch shows when it is slower than the card);
 ``device_ms``, the CUDA kernels' time per call in a torch.profiler trace;
-``graph_ms`` (the merge, the sum, the fill, vadd), CUDA events around
-replays of a CUDA graph of several calls, which no trace can thin out;
-``kernels_ms`` (the merge, the fill, vadd), each kernel of one call in
-launch order;
+``graph_ms`` (the merge, the sum, the fill, vadd, the compactions), CUDA
+events around replays of a CUDA graph of several calls, which no trace can
+thin out; ``kernels_ms`` (the merge, the fill, vadd, the compactions), each
+kernel of one call in launch order; ``bound_ms`` (the compactions), the
+bytes a call must move at 3.35 TB/s (``copy_if_bytes``, ``mask_bytes``);
 ``cold_ms``, the median event bracket with ``FLUSH_BYTES`` written and then
 half of them read back just before it, outside the bracket: the inputs are
 no longer in the 50 MB L2, the lines it holds are clean (a write alone
@@ -278,6 +284,67 @@ def packed_sort(cols):
 
 
 MERGE_SHAPES = ((1 << 25, 2), (1 << 25, 3), (1 << 21, 4))
+HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's device-memory rate
+
+
+def copy_if_bytes(n: int, count: int) -> int:
+    """Bytes the filter of n rows must move: x read, the kept values and the
+    count written."""
+    return 4 * n + 4 * count + 4
+
+
+def mask_bytes(n: int, ncols: int, count: int) -> int:
+    """Bytes compact_mask of n rows must move: the bool mask read, and the
+    kept rows of each column read and written (no other column value is
+    needed)."""
+    return n + 8 * ncols * count + 4
+
+
+def probe_compaction(dev, membership: bool, seed: int = 0):
+    """The merge probe's compaction at the config-#4 scale (2^24 distinct
+    table keys in [1, 2^25], 2^24 probes, half of them hits), built as
+    ``merge_lookup_bitonic`` builds it: the merged columns, the fill, and
+    (mask, columns, capacity) = (dest != -1, (dest, val) or (dest,) in
+    membership mode, 2^24). 2^25 rows, half of them kept."""
+    from dwarf_bench_tpu_torch.ops import (
+        bitonic_cuda,
+        merge_fill_cuda,
+        merge_lookup,
+    )
+
+    n = 1 << 24
+    rng = np.random.default_rng(seed)
+    keys = rng.permutation(2 * n)[:n].astype(np.uint32) + 1
+    vals = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
+    probes = np.concatenate([keys[: n // 2], rng.integers(
+        0, n, n // 2).astype(np.uint32) + np.uint32(4 * n)])
+
+    def t(a):
+        return torch.from_numpy(a.view(np.int32)).to(dev)
+
+    sk, sv = merge_lookup.sort_table(t(keys), t(vals))
+    cols = merge_lookup.merge_columns(sk, sv, t(probes), 32, membership)
+    merged = bitonic_cuda.merge_bitonic(cols, num_cmp=2)
+    dest, val = merge_fill_cuda.merge_fill(
+        merged[0], merged[1], None if membership else merged[2], n,
+        membership=membership)
+    return dest != -1, (dest,) if membership else (dest, val), n
+
+
+def csr_build_compaction(dev, seed: int = 20261017):
+    """The general CSR join's build compaction at 2^20 rows (A keys drawn
+    with duplicates from [1, 2^19), as chip_smoke's CSR join): the segment
+    starts of the sorted keys, compacting (row index, key) into as many
+    slots as there are distinct keys."""
+    from dwarf_bench_tpu_torch.ops.primitives import sort_by_key
+
+    n = 1 << 20
+    a = np.random.default_rng(seed).integers(1, 1 << 19, n).astype(np.int32)
+    sk = sort_by_key(torch.from_numpy(a).to(dev), unsigned=True)
+    is_start = torch.ones(n, dtype=torch.bool, device=dev)
+    is_start[1:] = sk[1:] != sk[:-1]
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    return is_start, (iota, sk), len(np.unique(a))
 FILL_MODES = (("val32", False, False), ("val16", True, False),
               ("membership", False, True))
 
@@ -295,6 +362,70 @@ def f32_pair(n: int, dev, seed: int = 5):
     rng = np.random.default_rng(seed)
     return tuple(torch.from_numpy(rng.standard_normal(n).astype(np.float32))
                  .to(dev) for _ in range(2))
+
+
+def compaction_lines(root_label: str, dev, emit) -> None:
+    """The filter, compact_mask and the scan tail at the shapes their paths
+    give them, against ``masked_select`` (one a column)."""
+    from dwarf_bench_tpu_torch.ops import (
+        compact_cuda,
+        filter_cuda,
+        scan_tail_cuda,
+    )
+    from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
+
+    rng = np.random.default_rng(6)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def case(label, fn, args, library, nbytes):
+        emit({"root": root_label, "case": label,
+              **times(fn, *args, graph=True), "kernels_ms": kernels_ms(
+                  fn, *args), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        # masked_select reads its count back to the host: no graph
+        emit({"root": root_label, "case": f"masked_select {label}",
+              **times(library, *args)})
+
+    def selects(mask, cols, _):
+        return [torch.masked_select(c, mask) for c in cols]
+
+    scan_x = t(rng.integers(1, 10000, 1 << 24, endpoint=True))
+    for label, x, thr in (("filter 2^24 x<5", scan_x, 5),
+                          ("filter 2^20 x<5000", scan_x[: 1 << 20], 5000)):
+        count = int((x < thr).sum())
+        case(label, filter_cuda.filter, (x, thr, x.numel()),
+             lambda v, th, _: torch.masked_select(v, v < th),
+             copy_if_bytes(x.numel(), count))
+    gm = torch.from_numpy(rng.random(65536) < 2 / 128).to(dev)
+    shapes = [("65536 x 2, capacity 4096", gm,
+               (t(rng.integers(0, 1 << 24, 65536)),
+                t(rng.integers(1, 5, 65536))), 4096)]
+    scan_mask = scan_x < 5
+    shapes += [("2^24 x 1", scan_mask, (scan_x,), 1 << 24),
+               ("2^24 x 3", scan_mask, (scan_x, scan_x + 1, scan_x - 1),
+                1 << 24)]
+    shapes.append(("2^20 x 2 (CSR build)", *csr_build_compaction(dev)))
+    for label, mask, cols, cap in shapes:
+        count = int(mask.sum())
+        case(f"compact_mask {label}", compact_cuda.compact_mask,
+             (mask, cols, cap), selects,
+             mask_bytes(mask.numel(), len(cols), min(count, cap)))
+    del shapes, scan_mask
+    for membership in (False, True):
+        mask, cols, cap = probe_compaction(dev, membership)
+        label = ("2^25 x 1 (probe, membership)" if membership
+                 else "2^25 x 2 (probe)")
+        case(f"compact_mask {label}", compact_cuda.compact_mask,
+             (mask, cols, cap), selects,
+             mask_bytes(mask.numel(), len(cols), min(int(mask.sum()), cap)))
+        del mask, cols
+    stat, base = chunk_stats(scan_x.view(-1, 128), 5)
+    emit({"root": root_label, "case": "scan_tail_streams 2^17 chunks",
+          **times(scan_tail_cuda.scan_tail_streams, stat, base, 5, 16384,
+                  512, graph=True),
+          "kernels_ms": kernels_ms(scan_tail_cuda.scan_tail_streams, stat,
+                                   base, 5, 16384, 512)})
 
 
 def case_lines(root_label: str, dev, emit) -> None:
@@ -359,6 +490,8 @@ def case_lines(root_label: str, dev, emit) -> None:
           "kernels_ms": kernels_ms(vadd_cuda.vadd_pallas, a[1:], b[1:])})
     emit({"root": root_label, "case": "torch.add 2^24 f32",
           **times(torch.add, a, b, graph=True)})
+    del a, b
+    compaction_lines(root_label, dev, emit)
 
 
 def sweep_lines(dev, emit) -> None:
@@ -407,7 +540,9 @@ def host_lines(dev, emit) -> None:
     at 4096 rows (so the card keeps up with the host)."""
     from dwarf_bench_tpu_torch.ops import (
         _build,
+        compact_cuda,
         cumsum_cuda,
+        filter_cuda,
         hist_cuda,
         reduce_cuda,
     )
@@ -439,6 +574,7 @@ def host_lines(dev, emit) -> None:
     rscratch = _build.stream_scratch("reduce_sum", dev,
                                      reduce_cuda.SCRATCH_WORDS)
     rs, rwords = rscratch.data_ptr(), rscratch.numel()
+    mask = x > 0
     pieces = [
         ("ctypes call, n = 0 (returns before any CUDA call)",
          lambda: fn(xp, 0, None, -1, op, sp, stream)),
@@ -484,6 +620,11 @@ def host_lines(dev, emit) -> None:
          lambda: lib.dbt_reduce_sum(xp, n, op, rs, rwords, stream)),
         ("launch('dbt_reduce_sum')",
          lambda: _build.launch("dbt_reduce_sum", dev, xp, n, op, rs, rwords)),
+        ("filter wrapper", lambda: filter_cuda.filter(x, 5)),
+        ("compact_mask wrapper, 2 cols",
+         lambda: compact_cuda.compact_mask(mask, (x, x), 1024)),
+        ("masked_select(x, x < 5)",
+         lambda: torch.masked_select(x, x < 5)),
     ]
     for label, piece in pieces:
         for _ in range(100):

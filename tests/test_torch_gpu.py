@@ -257,6 +257,209 @@ def test_scan_tail_streams(cuda, rng, nch, density):
         assert _same_prefix(got[3], exp[3], min(nm, caps[1]))
 
 
+# rows a block of csrc/compact.cuh compacts: for compact_mask and the scan
+# tail, and for the filter
+COMPACT_TILE, FILTER_TILE = 8192, 16384
+
+
+def _tile_sizes(tile):
+    return [1, tile - 1, tile, tile + 1, (1 << 25) + 3]
+
+
+def _caps(kept, n):
+    """Capacity 0, a cut inside a tile (about half of the kept rows, at
+    half density), and the column length."""
+    return (0, kept // 2 + 1, n)
+
+
+def _same_compaction(got, exp, cap):
+    """(outs, count) pairs equal in the count and in the slots below it."""
+    (gouts, gcount), (eouts, ecount) = got, exp
+    gouts = gouts if isinstance(gouts, tuple) else (gouts,)
+    eouts = eouts if isinstance(eouts, tuple) else (eouts,)
+    k = min(int(ecount), cap)
+    return (gcount.shape == () and int(gcount) == int(ecount)
+            and all(_same_prefix(g, e, k) for g, e in zip(gouts, eouts)))
+
+
+@pytest.mark.parametrize("ncols", [1, 2, 3])
+@pytest.mark.parametrize("n", _tile_sizes(COMPACT_TILE))
+def test_compact_mask_tile_boundaries(cuda, rng, n, ncols):
+    mask = torch.from_numpy(rng.random(n) < 0.5).to(cuda)
+    cols = [_t(rng.integers(-(2**31), 2**31, n), cuda) for _ in range(ncols)]
+    for cap in _caps(int(mask.sum()), n):
+        assert _same_compaction(compact_cuda.compact_mask(mask, cols, cap),
+                                compact_cuda.compact_mask_plain(mask, cols,
+                                                                cap), cap)
+
+
+@pytest.mark.parametrize("threshold", [5, 5000])
+@pytest.mark.parametrize("n", _tile_sizes(FILTER_TILE))
+def test_filter_tile_boundaries(cuda, rng, n, threshold):
+    x = _t(rng.integers(1, 10000, n, endpoint=True), cuda)
+    for cap in _caps(int((x < threshold).sum()), n):
+        assert _same_compaction(filter_cuda.filter(x, threshold, cap),
+                                filter_cuda.filter_plain(x, threshold, cap),
+                                cap)
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_compact_mask_of_views_off_16_bytes(cuda, rng, offset):
+    """The mask 1-15 bytes past a 16-byte boundary (past a 4-byte one, the
+    scalar loads) and its columns 4-12 bytes past one."""
+    n = 5 * COMPACT_TILE + 77
+    raw = torch.from_numpy(rng.random(n + 16) < 0.5).to(cuda)
+    mask = raw[offset: offset + n]
+    wide = [_t(rng.integers(-(2**31), 2**31, n + 3), cuda) for _ in range(2)]
+    cols = [c[offset % 4: offset % 4 + n] for c in wide]
+    for cap in _caps(int(mask.sum()), n):
+        assert _same_compaction(compact_cuda.compact_mask(mask, cols, cap),
+                                compact_cuda.compact_mask_plain(mask, cols,
+                                                                cap), cap)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_filter_and_scan_tail_of_views_off_16_bytes(cuda, rng, offset):
+    """x, stat and base 4, 8 or 12 bytes past a 16-byte boundary: every
+    tile takes the scalar loads."""
+    n = 5 * FILTER_TILE + 77
+    x = _t(rng.integers(1, 10000, n + 3), cuda)[offset: offset + n]
+    for cap in _caps(int((x < 5000).sum()), n):
+        assert _same_compaction(filter_cuda.filter(x, 5000, cap),
+                                filter_cuda.filter_plain(x, 5000, cap), cap)
+    rows = rng.integers(1, 10001, (n, 128))
+    rows[rng.random((n, 128)) < 0.01] = 3
+    stat, base = chunk_stats(_t(rows, cuda), 5)
+    stat = torch.cat([stat[:offset], stat])[offset:]
+    base = torch.cat([base[:offset], base])[offset:]
+    got = scan_tail_cuda.scan_tail_streams(stat, base, 5, 16384, 2048)
+    exp = scan_tail_cuda.scan_tail_streams_plain(stat, base, 5, 16384, 2048)
+    ns, nm = int(exp[4]), int(exp[5])
+    assert (int(got[4]), int(got[5])) == (ns, nm)
+    assert torch.equal(got[0], exp[0])
+    assert _same_prefix(got[1], exp[1], min(ns, 16384))
+    assert _same_prefix(got[2], exp[2], min(nm, 2048))
+    assert _same_prefix(got[3], exp[3], min(nm, 2048))
+
+
+def _compaction_calls(rng, device):
+    """Calls of the three wrappers that share the compaction's scratch, of
+    mixed sizes, each with its twin: (kernel call, plain call, capacity)."""
+    calls = []
+    for n, cap in (((1 << 22) + 1, None), (3, 1), (1_000_003, 1000),
+                   (COMPACT_TILE, None), ((1 << 20) + 9, 0)):
+        x = _t(rng.integers(1, 10000, n, endpoint=True), device)
+        mask = x < 5000
+        cols = (x, x + 1)
+        cap_n = n if cap is None else cap
+        calls.append((lambda x=x, c=cap: filter_cuda.filter(x, 5000, c),
+                      lambda x=x, c=cap: filter_cuda.filter_plain(x, 5000, c),
+                      cap_n))
+        calls.append((lambda m=mask, cs=cols, c=cap:
+                      compact_cuda.compact_mask(m, cs, c),
+                      lambda m=mask, cs=cols, c=cap:
+                      compact_cuda.compact_mask_plain(m, cs, c), cap_n))
+    return calls
+
+
+def test_compactions_back_to_back(cuda, rng):
+    """Ten calls of the filter and the mask compaction queued on one
+    stream: each finds the counters and status words the one before left
+    at 0."""
+    calls = _compaction_calls(rng, cuda)
+    torch.cuda.synchronize()
+    got = [call() for call, _, _ in calls]
+    for g, (_, plain, cap) in zip(got, calls):
+        assert _same_compaction(g, plain(), cap)
+
+
+def test_compactions_on_two_streams(cuda, rng):
+    """Two streams at once, each with its own scratch, behind a sleep so
+    that their calls overlap on the card: three calls a stream, the scan
+    tail between the filter and the mask compaction."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    xs = [_t(rng.integers(1, 10000, (1 << 22) + 7 * i, endpoint=True), cuda)
+          for i in range(2)]
+    stats = [chunk_stats(x[: (x.numel() // 128) * 128].view(-1, 128), 5000)
+             for x in xs]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for i, st in enumerate(streams):
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(5_000_000)
+            got[i].append(filter_cuda.filter(xs[i], 5000))
+            got[i].append(scan_tail_cuda.scan_tail_streams(*stats[i], 5000,
+                                                           4096, 4096))
+            got[i].append(compact_cuda.compact_mask(xs[i] < 7000,
+                                                    (xs[i], xs[i] - 1)))
+    torch.cuda.synchronize()
+    for i, x in enumerate(xs):
+        n = x.numel()
+        assert _same_compaction(got[i][0], filter_cuda.filter_plain(x, 5000),
+                                n)
+        exp = scan_tail_cuda.scan_tail_streams_plain(*stats[i], 5000, 4096,
+                                                     4096)
+        assert [int(v) for v in got[i][1][4:]] == [int(v) for v in exp[4:]]
+        assert torch.equal(got[i][1][0], exp[0])
+        assert _same_compaction(got[i][2], compact_cuda.compact_mask_plain(
+            x < 7000, (x, x - 1)), n)
+
+
+def test_compactions_replay_in_a_captured_graph(cuda, rng):
+    """A CUDA graph of a filter, a mask compaction and a scan tail, replayed
+    on new inputs copied into its static ones: each replay finds the
+    scratch the last one left at 0."""
+    n = (1 << 20) + 5
+    x = _t(rng.integers(1, 10000, n, endpoint=True), cuda)
+    stat, base = chunk_stats(x[: (n // 128) * 128].view(-1, 128), 5000)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+
+    def calls():
+        return (filter_cuda.filter(x, 5000),
+                compact_cuda.compact_mask(x < 3000, (x, x + 7), 9000),
+                scan_tail_cuda.scan_tail_streams(stat, base, 5000, 777, 99))
+
+    with torch.cuda.stream(side):
+        calls()  # the side stream's scratch, made outside the capture
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out_f, out_c, out_t = calls()
+    for rep in range(3):
+        x.copy_(_t(rng.integers(1, 10000, n, endpoint=True), cuda))
+        s2, b2 = chunk_stats(x[: (n // 128) * 128].view(-1, 128), 5000)
+        stat.copy_(s2)
+        base.copy_(b2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_compaction(out_f, filter_cuda.filter_plain(x, 5000), n)
+        assert _same_compaction(out_c, compact_cuda.compact_mask_plain(
+            x < 3000, (x, x + 7), 9000), 9000)
+        exp = scan_tail_cuda.scan_tail_streams_plain(stat, base, 5000, 777,
+                                                     99)
+        assert [int(v) for v in out_t[4:]] == [int(v) for v in exp[4:]]
+        assert torch.equal(out_t[0], exp[0])
+        assert _same_prefix(out_t[2], exp[2], min(int(exp[5]), 99))
+
+
+@pytest.mark.parametrize("n", [0, 65536, 1 << 25])
+def test_compactions_are_one_kernel_and_no_memset(cuda, rng, n):
+    """compact_mask with 1-3 columns and the filter: one kernel, no memset
+    a call; the scan tail: two kernels (the compaction, the sentinel
+    fill)."""
+    x = _t(rng.integers(1, 10000, n, endpoint=True), cuda)
+    mask = x < 5000
+    for ncols in (1, 2, 3):
+        assert device_ops(compact_cuda.compact_mask, mask,
+                          (x,) * ncols) == (1, 0)
+    assert device_ops(filter_cuda.filter, x, 5) == (1, 0)
+    nch = n // 128
+    stat, base = chunk_stats(x[: nch * 128].view(-1, 128), 5)
+    assert device_ops(scan_tail_cuda.scan_tail_streams, stat, base, 5,
+                      16384, 512) == (2, 0)
+
+
 @pytest.mark.parametrize("n,threshold,deep", [(1 << 20, 5, 0), (1 << 20, 5, 40),
                                               (100_003, 5, 5), (1 << 20, 5000, 0)])
 def test_filter_sparse_matches_oracle(cuda, rng, n, threshold, deep):
