@@ -16,9 +16,10 @@ with nvcc, then:
      profiler device time), and the bound (the least time the card could
      take: bytes over 3.35 TB/s or operations over 67 TOP/s, whichever is
      larger; for the lock kernel, one assumed L2 round trip per serialized
-     acquisition); cumsum and weighted_histogram and their library calls
-     are also timed with the L2 flushed before each call, and merge_bitonic,
-     merge_fill, reduce_sum and vadd as replays of a captured CUDA graph;
+     acquisition); cumsum, histogram and weighted_histogram and their library
+     calls are also timed with the L2 flushed before each call, and
+     merge_bitonic, merge_fill, reduce_sum, vadd and histogram as replays
+     of a captured CUDA graph;
      filter, compact_mask and scan_tail_streams both ways, compact_mask also
      at the merge probe's 2^25 rows x 2 columns and x 1 (membership) and at
      the CSR build's 2^20 x 2; a profiler time below the bound is flagged
@@ -32,9 +33,11 @@ with nvcc, then:
      memsets one call puts on the card, counted as the nodes of a captured
      CUDA graph, must be one a pass of the plan for merge_bitonic at 2^25
      (3), one kernel and no memset for merge_fill in each mode, reduce_sum,
-     vadd (aligned or not), compact_mask (1-3 columns) and filter, and two
-     kernels and no memset for scan_tail_streams; the three compactions run
-     back to back on one stream and three times on each of two streams;
+     vadd (aligned or not), compact_mask (1-3 columns), filter,
+     scan_tail_streams and the histogram (hi80 2^22, hi128 2^20), and two
+     kernels and no memset for the scan's phase A (chunk_stats, cumsum);
+     the three compactions run back to back on one stream and three times
+     on each of two streams;
   3. drives the dwarfs through the CLI entry point with ``--device=gpu``
      (Radix 2^22, GroupBy 2^22 with G=64, GroupBy 2^20 with G=2^16,
      JoinOmnisci 2^20, TwoPassScan, DPLScan and DPLScanCuda 2^24,
@@ -117,6 +120,10 @@ KERNELS = {
                    "dwarf_bench_tpu/ops/merge_fill_pallas.py:52"),
     "reduce_sum": ("dwarf_bench_tpu_torch/csrc/reduce.cu",
                    "dwarf_bench_tpu/ops/reduce.py:36"),
+    # the sparse scan's phase A on its default path: the kernel of
+    # chunk_stats_pallas where the JAX package fuses chunk_stats_xla
+    "chunk_stats": ("dwarf_bench_tpu_torch/csrc/chunk_stats.cu",
+                    "dwarf_bench_tpu/ops/chunk_stats_pallas.py:268"),
     # the JAX names this slice serves
     "chunk_stats_pallas": ("dwarf_bench_tpu_torch/csrc/chunk_stats.cu",
                            "dwarf_bench_tpu/ops/chunk_stats_pallas.py:268"),
@@ -182,7 +189,8 @@ OPS_PER_S = 67e12
 # measured here.
 L2_ROUND_TRIP_S = 1.0e-7
 
-SCAN_KERNELS = ("scan_tail_streams", "compact_mask", "emit_prefix")
+SCAN_KERNELS = ("chunk_stats", "cumsum", "scan_tail_streams",
+                "compact_mask", "emit_prefix")
 # the bulk hash probe: bitonic merge, fused fill, compaction before unsort
 MERGE_KERNELS = ("merge_bitonic", "merge_fill", "compact_mask")
 
@@ -410,10 +418,20 @@ def phase_kernels(dev):
         return torch.bincount(k, minlength=hi_bins * 128)
 
     run("histogram", "radix hi80 n=2^22", h, hp, t(radix_k), 80, timed=True,
-        cost=keyed(1 << 22, 80 * 128), library=bincount)
+        cost=keyed(1 << 22, 80 * 128), library=bincount, cold=True,
+        graph=True, library_graph=False)
     join_k = make_random(1 << 20, seed=2) - 1
     run("histogram", "join hi128 n=2^20", h, hp, t(join_k), 128, timed=True,
-        cost=keyed(1 << 20, 128 * 128), library=bincount)
+        cost=keyed(1 << 20, 128 * 128), library=bincount, cold=True,
+        graph=True, library_graph=False)
+    run("histogram", "radix hi80 n=2^22, one bin", h, hp,
+        t(np.full(1 << 22, 77)), 80, timed=True,
+        cost=keyed(1 << 22, 80 * 128), library=bincount, graph=True,
+        library_graph=False)
+    run("histogram", "radix hi80 n=2^22 - 1, view off 4 bytes", h, hp,
+        t(radix_k)[1:], 80)
+    run("histogram", "join hi128 n=2^20 - 3, view off 12 bytes", h, hp,
+        t(join_k)[3:], 128)
     run("histogram", "all out of range", h, hp,
         t(np.full(5000, 80 * 128, np.int64)), 80)
     run("histogram", "negative keys", h, hp,
@@ -892,15 +910,15 @@ def phase_kernels(dev):
           "max_abs_err=0", flush=True)
     del big
 
-    # -- the JAX names of this slice: the chunk-stats kernel under its
-    #    three names (the scan at 2^24, x < 5) ---------------------------
+    # -- the chunk-stats kernel: the scan's phase A, and under its three
+    #    JAX names (the scan at 2^24, x < 5) ---------------------------
     def pair(res):
         return [], [(c, c.numel()) for c in res]
 
     nch = scan_n // 128
     x2 = scan_x.view(nch, 128)
     near_min = t(rng.integers(i32min, i32max, 3001 * 128, endpoint=True))
-    for name in STATS_NAMES:
+    for name in ("chunk_stats",) + STATS_NAMES:
         fn = getattr(chunk_stats_cuda, name)
         run(name, "nch=2^17 (2^24 rows, x<5)", fn, chunk_stats, x2, 5,
             view=pair,
@@ -1115,14 +1133,18 @@ def phase_kernels(dev):
 def compaction_checks(dev, rng, t, scan_x, stat, base):
     """The one-pass compaction (csrc/compact.cuh) behind compact_mask, the
     filter and the scan tail: the kernels and memsets a call puts on the
-    card (one and none for compact_mask with 1-3 columns and the filter, two
-    and none for the scan tail, whose second fills the sentinel); then calls
+    card (one and none for compact_mask with 1-3 columns, the filter and
+    the scan tail, whose last tile's block writes the sentinel; and for the
+    count histogram at Radix's hi80 2^22 and the JoinOmnisci build's hi128
+    2^20, two for the scan's phase A, the chunk-stats kernel and its
+    cumsum); then calls
     of all three queued back to back on one stream, each finding the shared
     scratch the one before left at 0, and three on each of two streams
     behind a sleep, each stream with its own scratch; each held exactly to
     its twin."""
-    from dwarf_bench_tpu_torch.ops import compact_cuda, filter_cuda, \
-        scan_tail_cuda
+    from dwarf_bench_tpu_torch.common.datagen import make_random
+    from dwarf_bench_tpu_torch.ops import chunk_stats_cuda, compact_cuda, \
+        filter_cuda, hist_cuda, scan_tail_cuda
     from dwarf_bench_tpu_torch.utils.kernel_times import device_ops
 
     cm, f, st = (compact_cuda.compact_mask, filter_cuda.filter,
@@ -1133,7 +1155,13 @@ def compaction_checks(dev, rng, t, scan_x, stat, base):
              for k in (1, 2, 3)]
     cases += [("filter [2^24 x<5]", f, (scan_x, 5), (1, 0)),
               ("scan_tail_streams [2^17 chunks]", st,
-               (stat, base, 5, 16384, 512), (2, 0))]
+               (stat, base, 5, 16384, 512), (1, 0)),
+              ("chunk_stats [2^17 chunks]", chunk_stats_cuda.chunk_stats,
+               (scan_x.view(-1, 128), 5), (2, 0)),
+              ("histogram [hi80 2^22]", hist_cuda.histogram,
+               (t(make_random(1 << 22, seed=1) - 1), 80), (1, 0)),
+              ("histogram [hi128 2^20]", hist_cuda.histogram,
+               (t(make_random(1 << 20, seed=2) - 1), 128), (1, 0))]
     for label, fn, args, want in cases:
         ops = device_ops(fn, *args)
         print(f"kernel {label}: kernels per call {ops[0]!r}, memsets "
@@ -1263,7 +1291,8 @@ def scan_ops(dev):
       ``filter`` kernel runs, and the result must equal filter_oracle;
     - the dwarfs' assume_sparse=True call at 2^24 under CUDA's sync debug
       mode "error", which raises if anything reads the card back to the
-      host between the input and the returned (out, count)."""
+      host between the input and the returned (out, count); its phase A
+      must launch the chunk-stats kernel once."""
     from dwarf_bench_tpu_torch.common.datagen import make_random
     from dwarf_bench_tpu_torch.ops import _build, scan
     from dwarf_bench_tpu_torch.utils.timing import kernel_time
@@ -1288,17 +1317,20 @@ def scan_ops(dev):
     check(scan.sparse_caps_ok(x), "scan data does not fit the sparse caps")
     scan.filter_sparse(xd, assume_sparse=True)
     torch.cuda.synchronize(dev)
+    before = _build.LAUNCHES["chunk_stats"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         out, count = scan.filter_sparse(xd, assume_sparse=True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    check(_build.LAUNCHES["chunk_stats"] == before + 1,
+          "filter_sparse 2^24 x<5: phase A did not launch chunk_stats once")
     expected = scan.filter_oracle(x)
     check(int(count) == len(expected) and np.array_equal(
         out[: len(expected)].cpu().numpy(), expected),
         "filter_sparse 2^24 x<5: differs from filter_oracle")
-    print("filter_sparse 2^24 x<5 assume_sparse: valid, no host read",
-          flush=True)
+    print("filter_sparse 2^24 x<5 assume_sparse: valid, no host read, "
+          "phase A on the chunk_stats kernel once", flush=True)
 
 
 def hash_ops(dev):
@@ -1422,6 +1454,11 @@ def stats_pallas_paths(dev):
                                    "compact_mask")
                           + (("emit_prefix",) if sparse else ("filter",)),
                           f"filter_sparse {label} stats_pallas=True")
+            if sp is None:
+                _launched(before, ("chunk_stats", "cumsum",
+                                   "scan_tail_streams")
+                          + (("emit_prefix",) if sparse else ("filter",)),
+                          f"filter_sparse {label} stats_pallas=None")
             call = (lambda v, sp=sp:
                     scan.filter_sparse(v, thr, stats_pallas=sp))
             times[sp].append((kernel_time(call, xd) * 1e3,

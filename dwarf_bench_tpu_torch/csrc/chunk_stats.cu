@@ -18,9 +18,10 @@
 // undefined in C++), so a threshold near INT32_MIN gives the same garbage
 // bit for bit.
 //
-// The kernel also writes cnt, from which the wrapper takes base, the
-// exclusive cumsum, with the cumsum kernel (csrc/cumsum.cu), as
-// chunk_stats_roll_pallas does with cumsum_pallas.
+// The kernel also writes the counts one slot late, cnt[0] = 0 and
+// cnt[c + 1] = cnt of chunk c, so that the cumsum kernel (csrc/cumsum.cu)
+// over cnt[0:nch] gives base, the exclusive cumsum, in one more launch, as
+// chunk_stats_roll_pallas takes it from cumsum_pallas.
 //
 // It reads 4 bytes a row once and writes 8 bytes a chunk, so it is bound by
 // device-memory bandwidth: 64 MiB + 1 MiB at 2^24 rows, about 20 us at the
@@ -68,13 +69,14 @@ __global__ void __launch_bounds__(kThreads)
     const uint32_t c = p >> 16;
     const uint32_t vs = p & 65535u;
     stat[chunk] = static_cast<int32_t>(c * 512u + (vs < 511u ? vs : 511u));
-    cnt[chunk] = static_cast<int32_t>(c);
+    cnt[chunk + 1] = static_cast<int32_t>(c);
+    if (chunk == 0) cnt[0] = 0;
   }
 }
 
 }  // namespace
 
-// x holds nch * 128 int32 rows; stat and cnt nch int32 each.
+// x holds nch * 128 int32 rows; stat nch int32, cnt nch + 1.
 extern "C" int dbt_chunk_stats(const int32_t* x, int64_t nch, int32_t t,
                                int32_t* stat, int32_t* cnt, void* stream) {
   if (nch <= 0) return static_cast<int>(cudaGetLastError());

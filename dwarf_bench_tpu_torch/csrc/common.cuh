@@ -29,8 +29,9 @@ inline int num_sms() {
   return sms;
 }
 
-// Lets `kernel` take up to the device's opt-in shared memory a block and,
-// when `cluster`, clusters above the portable 8 blocks. The attribute calls
+// Lets `kernel` take up to the device's opt-in shared memory a block (less
+// its static shared memory) and, when `cluster`, clusters above the
+// portable 8 blocks. The attribute calls
 // cost host time, so each device is configured once and marked in `done`; a
 // failure is returned and the next call tries again.
 template <typename Kernel>
@@ -43,11 +44,14 @@ cudaError_t configure(Kernel kernel, bool cluster,
     return err;
   }
   int most = 0;
+  cudaFuncAttributes attrs;
   err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attrs, kernel);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        most - static_cast<int>(attrs.sharedSizeBytes));
   }
   if (err == cudaSuccess && cluster) {
     err = cudaFuncSetAttribute(
@@ -64,6 +68,26 @@ inline int grid_for(int64_t n, int threads, int per_sm) {
   int64_t cap = (int64_t)num_sms() * per_sm;
   if (want > cap) want = cap;
   return want < 1 ? 1 : (int)want;
+}
+
+// An add at device scope with release semantics that returns nothing: the
+// caller's earlier writes, and those of its block before a barrier, are
+// visible to a thread whose acquiring load (load_acquire) reads the sum. The
+// caller does not wait for it.
+__device__ __forceinline__ void add_release(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
+               :
+               : "l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
 __device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t v) {

@@ -20,6 +20,7 @@
 namespace {
 
 struct MaskOp {
+  static constexpr int kThreads = 512;
   static constexpr int kVecs = 4;
   // three blocks an SM (40 registers): its rows are a byte each, so the
   // bytes in flight are the resident blocks' column reads
@@ -71,6 +72,7 @@ struct MaskOp {
       if (c < ncols) out[c][pos] = r.v[c];
     }
   }
+  __device__ void last_tile(const uint32_t (&)[1]) const {}
 };
 
 __global__ void copy_prefix(const int32_t* __restrict__ v, int64_t len,

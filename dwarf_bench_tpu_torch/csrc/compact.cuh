@@ -37,13 +37,14 @@
 //     (Op::prefetch) before its look-back, so their reads overlap the wait.
 //     A slot at or past the stream's capacity is not written.
 //   - The tile that holds the last row (tile 0 when n is 0) writes each
-//     stream's full count. The tile counter, a finished-block counter and
-//     the status words start at zero and the kernel leaves them so: each
-//     block counts itself finished once its look-back is done (an add with
-//     release semantics that it does not wait for), and the block of the
-//     last tile, which starts after every other, waits for the count and
-//     zeroes them. So the wrappers keep one scratch buffer a stream and no
-//     call needs a memset.
+//     stream's full count, and lets the Op write what lies past the counts
+//     (Op::last_tile: the scan tail's sentinel). The tile counter, a
+//     finished-block counter and the status words start at zero and the
+//     kernel leaves them so: each block counts itself finished once its
+//     look-back is done (an add with release semantics that it does not
+//     wait for), and the block of the last tile, which starts after every
+//     other, waits for the count and zeroes them. So the wrappers keep one
+//     scratch buffer a stream and no call needs a memset.
 // Output order is input order: no slot is claimed with an atomic. Counts and
 // ranks are 32-bit, so n must be below 2^31.
 //
@@ -53,10 +54,11 @@
 // compaction reads its columns at kept rows only. A block cannot finish
 // before the slowest of its recent predecessors has read its tile, so each
 // block lives several microseconds and the bytes in flight are the rows
-// that the resident blocks hold in registers: the filter takes 8 runs a
-// lane (16384-row tiles, 64 KB) at two blocks an SM. The mask (one byte a
-// row) and the scan tail's chunks take 4 (8192 rows): their calls on the
-// main path are small, and more, smaller tiles finish sooner there.
+// that the resident blocks hold in registers: the filter takes 512 lanes of
+// 8 runs (16384-row tiles, 64 KB) at two blocks an SM, the mask 512 lanes of
+// 4 (8192 rows). The scan tail's calls are small (2^17 chunks at 2^24 rows):
+// its Op takes tiles of its own size (TailOp in scan_tail.cu), so that its
+// tiles spread over the SMs.
 #pragma once
 
 #include "common.cuh"
@@ -64,12 +66,10 @@
 namespace dbt {
 namespace {  // internal linkage: each .cu instantiates its own kernels
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kGroupRows = 32 * 4 * 4;  // a warp's rows in a group of 4 runs
-constexpr int kMinTile = kThreads * 4 * 4;  // 8192 rows: 4 runs a lane
+// The smallest tile of any Op: the scratch holds a status word a tile of
+// kMinTile rows and stream, enough for every Op.
+constexpr int kMinTile = 512;
 constexpr int kBatch = 4;  // slots a lane fetches before it stores
-static_assert(kWarps <= 32, "one warp scans the warp counts");
 
 // Status word of a decoupled look-back (Merrill & Garland's single-pass
 // scan): flag << 32 | value, so that one 64-bit store makes both visible
@@ -128,31 +128,17 @@ __device__ __forceinline__ void look_back(
   }
 }
 
-// An add at device scope with release semantics that returns nothing: the
-// caller's earlier writes are visible to a thread whose acquiring load
-// (load_acquire) reads the sum. The caller does not wait for it.
-__device__ __forceinline__ void add_release(unsigned* p, unsigned v) {
-  asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
-               :
-               : "l"(p), "r"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-// Rows of a tile of `Op`: kThreads lanes of Op::kVecs runs of 4 rows.
+// Rows of a tile of `Op`: Op::kThreads lanes of Op::kVecs runs of 4 rows.
+// A lane's runs are counted in groups of up to 4 (a byte a run in a word).
 template <class Op>
 __host__ __device__ constexpr int tile_rows() {
-  static_assert(Op::kVecs % 4 == 0 && Op::kVecs * 4 <= 32,
-                "whole groups of 4 runs, a lane's flags in one word");
-  return kThreads * 4 * Op::kVecs;
+  static_assert((Op::kVecs < 4 || Op::kVecs % 4 == 0) && Op::kVecs * 4 <= 32,
+                "whole groups of runs, a lane's flags in one word");
+  static_assert(Op::kThreads % 32 == 0 && Op::kThreads <= 1024,
+                "whole warps; one warp scans the warp counts");
+  static_assert(Op::kThreads * 4 * Op::kVecs % kMinTile == 0,
+                "a tile is a multiple of kMinTile rows");
+  return Op::kThreads * 4 * Op::kVecs;
 }
 
 // Tiles of a compaction of n rows: one block runs even for n = 0, to write
@@ -168,7 +154,8 @@ inline int64_t compaction_scratch_words(int64_t n, int k) {
 }
 
 // An Op of K streams provides
-//   static constexpr int kVecs;       runs of 4 rows a lane: 4 or 8
+//   static constexpr int kThreads;    lanes of a block
+//   static constexpr int kVecs;       runs of 4 rows a lane: 1, 2, 4 or 8
 //   static constexpr int kMinBlocks;  blocks an SM (__launch_bounds__)
 //   struct Item;                                           one row's data
 //   __device__ Item load(int64_t i) const;                 row i
@@ -182,6 +169,9 @@ inline int64_t compaction_scratch_words(int64_t n, int k) {
 //   struct Value;                                          what a slot gets
 //   __device__ Value fetch(uint32_t staged, int s) const;
 //   __device__ void store(const Value&, int s, int64_t pos) const;
+//   __device__ void last_tile(const uint32_t (&count)[K]) const;
+//                                run by every lane of the last tile's block
+//                                once each stream's full count is known
 //   int64_t cap[K];                                        slots per stream
 
 // The sum of the four bytes of a lane's packed counts (up to 512).
@@ -190,17 +180,22 @@ __device__ __forceinline__ uint32_t byte_sum(uint32_t x) {
 }
 
 template <int K, class Op>
-__global__ void __launch_bounds__(kThreads, Op::kMinBlocks)
+__global__ void __launch_bounds__(Op::kThreads, Op::kMinBlocks)
     compact_lookback(Op op, int64_t n, bool vec, int32_t* __restrict__ totals,
                      unsigned* __restrict__ counters,
                      unsigned long long* status) {
+  constexpr int kThreads = Op::kThreads;
+  constexpr int kWarps = kThreads / 32;
   constexpr int kVecs = Op::kVecs;
-  constexpr int kGroups = kVecs / 4;  // a packed word of counts a group
+  constexpr int kRuns = kVecs < 4 ? kVecs : 4;  // runs of a group
+  constexpr int kGroups = kVecs / kRuns;  // a packed word of counts a group
+  constexpr int kGroupRows = 32 * 4 * kRuns;  // a warp's rows in a group
   constexpr int kWarpRows = kGroups * kGroupRows;
   constexpr int kTile = tile_rows<Op>();
   __shared__ uint32_t s_tile;
   __shared__ uint32_t s_warp[K][kWarps];  // warp counts, then their offsets
   __shared__ uint32_t s_before[K];
+  __shared__ uint32_t s_total[K];
   __shared__ uint32_t s_stage[kWarps][kGroupRows];  // a group's kept rows
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -249,8 +244,8 @@ __global__ void __launch_bounds__(kThreads, Op::kMinBlocks)
     if ((any >> (4 * j)) & 0xFu) op.prefetch(wbase + 4 * (32 * j + lane));
   }
 
-  // byte jj of word g: the kept rows of run 4 * g + jj in the lanes below
-  // (lane_below) and in the whole warp (warp_runs)
+  // byte jj of word g: the kept rows of run kRuns * g + jj in the lanes
+  // below (lane_below) and in the whole warp (warp_runs)
   uint32_t lane_below[K][kGroups], warp_runs[K][kGroups];
 #pragma unroll
   for (int s = 0; s < K; ++s) {
@@ -258,9 +253,9 @@ __global__ void __launch_bounds__(kThreads, Op::kMinBlocks)
     for (int g = 0; g < kGroups; ++g) {
       uint32_t own = 0;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < kRuns; ++jj) {
         own |= static_cast<uint32_t>(
-                   __popc((bits[s] >> (16 * g + 4 * jj)) & 0xFu))
+                   __popc((bits[s] >> (4 * (kRuns * g + jj))) & 0xFu))
                << (8 * jj);
       }
       const uint32_t inc = warp_inclusive_scan(own);
@@ -302,6 +297,7 @@ __global__ void __launch_bounds__(kThreads, Op::kMinBlocks)
       for (int s = 0; s < K; ++s) {
         st[K * tile + s] = kPrefix | (before[s] + aggregate[s]);
         s_before[s] = before[s];
+        s_total[s] = before[s] + aggregate[s];
         if (tile == gridDim.x - 1) {
           totals[s] = static_cast<int32_t>(before[s] + aggregate[s]);
         }
@@ -323,8 +319,8 @@ __global__ void __launch_bounds__(kThreads, Op::kMinBlocks)
     for (int g = 0; g < kGroups; ++g) {
       uint32_t q = 0;  // the group's kept rows in earlier runs
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = 4 * g + jj;
+      for (int jj = 0; jj < kRuns; ++jj) {
+        const int j = kRuns * g + jj;
         uint32_t r = q + ((lane_below[s][g] >> (8 * jj)) & 0xFFu);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -358,9 +354,13 @@ __global__ void __launch_bounds__(kThreads, Op::kMinBlocks)
   }
 
   // Every block has started once the last tile's has, so the last tile's
-  // block waits for every block to count itself finished, then leaves the
-  // counters and the status words zero.
+  // block writes past the counts, waits for every block to count itself
+  // finished, then leaves the counters and the status words zero.
   if (tile == gridDim.x - 1) {
+    uint32_t total[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) total[s] = s_total[s];
+    op.last_tile(total);
     if (threadIdx.x == 0) {
       while (load_acquire(counters + 1) < gridDim.x) {
       }
@@ -386,7 +386,7 @@ cudaError_t compact_streams(const Op& op, int64_t n, bool vec,
                             cudaStream_t stream) {
   if (n < 0 || n >= (1ll << 31)) return cudaErrorInvalidValue;
   compact_lookback<K, Op>
-      <<<(unsigned)compaction_tiles(n, tile_rows<Op>()), kThreads, 0,
+      <<<(unsigned)compaction_tiles(n, tile_rows<Op>()), Op::kThreads, 0,
          stream>>>(
           op, n, vec, totals, reinterpret_cast<unsigned*>(scratch),
           reinterpret_cast<unsigned long long*>(scratch + 2));

@@ -14,8 +14,9 @@
 namespace {
 
 struct FilterOp {
-  // 8 runs a lane and two blocks an SM: 32 of a thread's 64 registers hold
-  // rows
+  // 512 lanes of 8 runs and two blocks an SM: 32 of a thread's 64
+  // registers hold rows
+  static constexpr int kThreads = 512;
   static constexpr int kVecs = 8;
   static constexpr int kMinBlocks = 2;
   using Item = int32_t;
@@ -44,6 +45,7 @@ struct FilterOp {
   __device__ void store(Value v, int, int64_t pos) const {
     out[pos] = static_cast<int32_t>(v);
   }
+  __device__ void last_tile(const uint32_t (&)[1]) const {}
 };
 
 }  // namespace

@@ -4,13 +4,38 @@
 // histogram_16k_swar_pallas: (nbins,) int32 counts, nbins = hi_bins * 128, of
 // int32 keys; a key whose uint32 value is >= nbins (negatives, EMPTY,
 // padding) counts nowhere. The TPU kernel builds SWAR byte one-hots and
-// counts them on the MXU because the TPU has no atomics. Here each block keeps
-// a private histogram in shared memory (64 KB at nbins = 16384, so dynamic
-// shared memory above the 48 KB static limit), counts with shared-memory
-// atomics, and merges its non-zero bins into the output with one global
-// atomic each. Bound on the card: the key read (4 bytes a row) plus
-// shared-atomic contention, which stays low for keys spread over many bins;
-// the merge adds up to grid * nbins global atomics.
+// counts them on the MXU because the TPU has no atomics. Here each block
+// counts its share of the keys into a private copy of the bins in shared
+// memory (64 KB at nbins = 16384, so dynamic shared memory above the 48 KB
+// static limit) with shared-memory atomics, and the copies are merged with
+// plain loads and stores, in one launch that writes every bin of the output
+// once:
+//   - keys are read 16 bytes a thread, two vectors in flight, from the first
+//     16-byte boundary (scalar loads take the head before it and the ragged
+//     tail, in the same launch);
+//   - each block stores its copy into a (blocks, nbins) scratch, 16-bit
+//     bins where every block counts fewer than 2^16 keys (the main paths),
+//     and counts itself done with a release add it does not wait for;
+//   - the last `mergers` blocks to start, for which every other block has
+//     started, wait for every block to be done; each adds one slice of the
+//     bins over the copies from the L2, eight 16-byte loads in flight a
+//     lane, and stores it into the output. The last merger out puts the
+//     counters back to 0, so the scratch, one lasting buffer a stream,
+//     needs no memset. A waiting merger holds its SM slot, so the mergers
+//     must be fewer than the blocks the card holds at once: dbt_histogram
+//     refuses a plan with more, and the wrapper's (ops/hist_cuda.py
+//     HIST_MERGERS) takes fewer than the card's SMs.
+// Bound on the card: the key read (4 bytes a row) and the bins written. The
+// plan (ops/hist_cuda.py histogram_plan) keeps blocks * nbins at or below
+// max(nbins, n), so the copies, which mostly stay in the L2, never move
+// more than the keys. The time is the shared atomics and the key read, then
+// a chain of waits (the copies' stores, the done count, the mergers' loads)
+// that no bandwidth hides. Measured on an H100 (PERF.md): 16-bit copies beat
+// 32-bit ones by 9-13 %; summing a warp's keys of one bin first, with the
+// weighted kernel's vote (add_row) a key or with one vote a 16-byte vector,
+// slowed spread keys (by 29 % and 8 %), and only the vector vote sped up a
+// one-bin input; and a cluster adding its blocks' copies in distributed
+// shared memory first, to merge fewer copies, cost more than it saved.
 //
 // weighted_histogram replaces dwarf_bench_tpu/ops/hist_pallas.py:482
 // weighted_histogram_i8_swar_pallas and serves the same contract for
@@ -55,27 +80,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kHistThreads = 1024;
 constexpr int kWeightedThreads = 512;
 constexpr uint32_t kDropped = 0xFFFFFFFFu;
-
-__global__ void histogram_kernel(const int32_t* __restrict__ keys, int64_t n,
-                                 uint32_t* __restrict__ out, uint32_t nbins) {
-  extern __shared__ uint32_t bins[];
-  for (uint32_t b = threadIdx.x; b < nbins; b += blockDim.x) bins[b] = 0;
-  __syncthreads();
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const uint32_t k = static_cast<uint32_t>(keys[i]);
-    if (k < nbins) atomicAdd(&bins[k], 1u);
-  }
-  __syncthreads();
-  for (uint32_t b = threadIdx.x; b < nbins; b += blockDim.x) {
-    const uint32_t c = bins[b];
-    if (c != 0) atomicAdd(&out[b], c);
-  }
-}
+// The count histogram's lanes a block, from the plan sweep of
+// utils/kernel_times.py --sweep histogram on an H100 (PERF.md); the
+// schedule's rendering (ops/hist_cuda.py HIST_THREADS) mirrors it.
+constexpr int kHistThreads = 512;
+constexpr int kCounterWords = 4;  // the histogram's counters, then its copies
 
 // Adds one row a lane; every lane of the warp calls it. `key` is kDropped
 // for a row that is out of range or past n.
@@ -105,12 +116,181 @@ __device__ __forceinline__ uint32_t key_of(int32_t k, uint32_t nbins) {
   return u < nbins ? u : kDropped;
 }
 
+// Vectors v and v + step of k4 (an out-of-range one counts nowhere).
+__device__ __forceinline__ void load_keys(const int4* k4, int64_t v,
+                                          int64_t step, int64_t nvec,
+                                          int4 (&kk)[2]) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int64_t i = v + u * step;
+    kk[u] = i < nvec ? k4[i] : make_int4(-1, -1, -1, -1);
+  }
+}
+
+// Counts one key.
+__device__ __forceinline__ void count_key(uint32_t* bins, int32_t k,
+                                          uint32_t nbins) {
+  const uint32_t u = static_cast<uint32_t>(k);
+  if (u < nbins) atomicAdd(bins + u, 1u);
+}
+
 template <bool kCluster>
 __device__ __forceinline__ void sync_copy() {
   if constexpr (kCluster) {
     cg::this_cluster().sync();
   } else {
     __syncthreads();
+  }
+}
+
+// Adds a 16-byte word of a copy to sum: four 32-bit bins, or with kNarrow
+// eight 16-bit ones.
+template <bool kNarrow>
+__device__ __forceinline__ void add_word(uint32_t (&sum)[8], uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if constexpr (kNarrow) {
+      sum[2 * e] += w[e] & 0xFFFFu;
+      sum[2 * e + 1] += w[e] >> 16;
+    } else {
+      sum[e] += w[e];
+    }
+  }
+}
+
+// keys[0, head) lie before the first 16-byte boundary, then nvec int4
+// vectors, then the ragged tail up to n. out (nbins int32) gets every bin.
+// With more than one block, rows holds a copy of nbins words a block (of
+// 16-bit bins with kNarrow: every block counts fewer than 2^16 keys) and
+// counters three words, zero, left zero: the blocks' start tickets, the
+// blocks that have stored their copy, the mergers done. `mergers` is at
+// most the blocks, and nbins / mergers a multiple of 8.
+template <int kThreads, bool kNarrow>
+__global__ void __launch_bounds__(kThreads)
+    histogram_kernel(const int32_t* __restrict__ keys, int64_t n,
+                     int64_t head, int64_t nvec, uint32_t nbins,
+                     uint32_t* __restrict__ out, uint32_t* rows,
+                     unsigned* counters, int mergers) {
+  extern __shared__ uint4 bins4[];
+  uint32_t* bins = reinterpret_cast<uint32_t*>(bins4);
+  __shared__ uint32_t s_start;
+  const uint32_t nq = nbins / 4;
+  const bool merge = gridDim.x > 1;
+  // the start ticket: its value is waited for only at the merge
+  unsigned start = 0;
+  if (threadIdx.x == 0 && merge) start = atomicAdd(counters, 1u);
+  // a lane's keys, two vectors a step: each step's loads are issued before
+  // the previous step's keys are counted, the first ones before the bins
+  // are zeroed
+  const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t step = (int64_t)gridDim.x * kThreads;
+  const int4* k4 = reinterpret_cast<const int4*>(keys + head);
+  int4 kk[2];
+  load_keys(k4, tid, step, nvec, kk);
+  for (uint32_t q = threadIdx.x; q < nq; q += kThreads) {
+    bins4[q] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  for (int64_t v = tid; v < nvec; v += 2 * step) {
+    int4 next[2];
+    load_keys(k4, v + 2 * step, step, nvec, next);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      count_key(bins, kk[u].x, nbins);
+      count_key(bins, kk[u].y, nbins);
+      count_key(bins, kk[u].z, nbins);
+      count_key(bins, kk[u].w, nbins);
+      kk[u] = next[u];
+    }
+  }
+  if (tid < 8) {  // threads 0-3 the head, 4-7 the tail
+    const int64_t i = tid < 4 ? tid : head + 4 * nvec + tid - 4;
+    if (tid < 4 ? i < head : i < n) count_key(bins, keys[i], nbins);
+  }
+  __syncthreads();
+
+  if (!merge) {  // one block: its copy is the histogram
+    for (uint32_t q = threadIdx.x; q < nq; q += kThreads) {
+      reinterpret_cast<uint4*>(out)[q] = bins4[q];
+    }
+    return;
+  }
+  // store the copy, then count the block done (a release add after the
+  // barrier orders every lane's stores before it), without waiting
+  if constexpr (kNarrow) {
+    uint4* dst = reinterpret_cast<uint4*>(rows) + (int64_t)blockIdx.x * (nq / 2);
+    for (uint32_t q = threadIdx.x; q < nq / 2; q += kThreads) {
+      const uint4 a = bins4[2 * q];
+      const uint4 b = bins4[2 * q + 1];
+      dst[q] = make_uint4(a.x | a.y << 16, a.z | a.w << 16, b.x | b.y << 16,
+                          b.z | b.w << 16);
+    }
+  } else {
+    uint4* dst = reinterpret_cast<uint4*>(rows) + (int64_t)blockIdx.x * nq;
+    for (uint32_t q = threadIdx.x; q < nq; q += kThreads) dst[q] = bins4[q];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    dbt::add_release(counters + 1, 1u);
+    s_start = start;
+  }
+  __syncthreads();
+
+  // The last `mergers` blocks to start, for which every other block has
+  // started, wait for every block to be done; each adds its slice of the
+  // bins over the copies and stores it.
+  const uint32_t first_merger = gridDim.x - mergers;
+  if (s_start < first_merger) return;
+  const uint32_t slice = nbins / mergers;
+  const uint32_t lo = (s_start - first_merger) * slice;
+  for (uint32_t b = threadIdx.x; b < slice; b += kThreads) bins[b] = 0;
+  if (threadIdx.x == 0) {
+    while (dbt::load_acquire(counters + 1) < gridDim.x) {
+    }
+  }
+  __syncthreads();
+  // `words` 16-byte words of the slice a pass, `groups` lanes a word, each
+  // adding every groups-th copy with eight loads in flight, then one shared
+  // add a bin
+  constexpr uint32_t kBinsAWord = kNarrow ? 8 : 4;
+  const uint32_t nw = slice / kBinsAWord;
+  const int64_t row = nbins / kBinsAWord;
+  const uint32_t words = nw < kThreads ? nw : kThreads;
+  const uint32_t groups = kThreads / words;
+  const uint32_t g = threadIdx.x / words;
+  const int ncopies = gridDim.x;
+  for (uint32_t w0 = 0; w0 < nw; w0 += words) {
+    const uint32_t w = w0 + threadIdx.x % words;
+    if (g < groups && w < nw) {
+      // other SMs wrote the copies: read them from the L2
+      const uint4* col =
+          reinterpret_cast<const uint4*>(rows) + lo / kBinsAWord + w;
+      uint32_t sum[8] = {};
+      for (int c = g; c < ncopies; c += 8 * groups) {
+        uint4 v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int cj = c + j * groups;
+          v[j] = cj < ncopies ? __ldcg(col + cj * row) : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) add_word<kNarrow>(sum, v[j]);
+      }
+#pragma unroll
+      for (uint32_t e = 0; e < kBinsAWord; ++e) {
+        atomicAdd(bins + w * kBinsAWord + e, sum[e]);
+      }
+    }
+  }
+  __syncthreads();
+  for (uint32_t q = threadIdx.x; q < slice / 4; q += kThreads) {
+    reinterpret_cast<uint4*>(out + lo)[q] = bins4[q];
+  }
+  if (threadIdx.x == 0 && atomicAdd(counters + 2, 1u) == (unsigned)mergers - 1) {
+    counters[0] = 0;  // every block has taken its ticket and is done
+    counters[1] = 0;
+    counters[2] = 0;
   }
 }
 
@@ -199,7 +379,6 @@ __global__ void sum_copies(const uint4* __restrict__ copies, int ncopies,
   out[q] = s;
 }
 
-std::atomic<uint64_t> histogram_ready{0};
 std::atomic<uint64_t> weighted_ready{0};
 std::atomic<uint64_t> weighted_cluster_ready{0};
 
@@ -220,21 +399,72 @@ cudaLaunchConfig_t cluster_config(int blocks, int cluster, int smem,
   return cfg;
 }
 
+template <bool kNarrow>
+cudaError_t launch_histogram(const int32_t* keys, int64_t n, int64_t head,
+                             int64_t nvec, uint32_t nbins, uint32_t* out,
+                             int32_t blocks, int32_t mergers,
+                             int32_t* scratch, cudaStream_t s) {
+  static std::atomic<uint64_t> ready{0};
+  auto kernel = histogram_kernel<kHistThreads, kNarrow>;
+  cudaError_t err = dbt::configure(kernel, false, ready);
+  if (err != cudaSuccess) return err;
+  const int smem = static_cast<int>(nbins * sizeof(uint32_t));
+  // A merger waits for every block: refuse more mergers than the card holds
+  // at once. Every SM holds at least one block, so the exact count is asked
+  // for only when the mergers reach the SMs.
+  if (blocks > 1 && mergers >= dbt::num_sms()) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kHistThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (mergers >= dbt::num_sms() * per_sm) return cudaErrorInvalidValue;
+  }
+  kernel<<<blocks, kHistThreads, smem, s>>>(
+      keys, n, head, nvec, nbins, out,
+      reinterpret_cast<uint32_t*>(scratch + kCounterWords),
+      reinterpret_cast<unsigned*>(scratch), mergers);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// out must hold nbins zeros; nbins * 4 bytes must fit one block's shared
-// memory (the wrapper allows nbins <= 16384).
+// Writes every bin of out (nbins, a multiple of 128 up to 2^14: its int32
+// fit one block's shared memory). `blocks` blocks each count a share of the
+// keys into a copy; `mergers` blocks, at most `blocks`, fewer than the
+// blocks the device holds at once, and with nbins a multiple of
+// 8 * mergers, merge the copies. With more than one block, scratch holds
+// dbt_histogram_scratch(nbins, blocks) int32 whose first 4 (the counters)
+// are zero, and leaves them zero. keys needs only int32 alignment.
 extern "C" int dbt_histogram(const int32_t* keys, int64_t n, int32_t* out,
-                             int32_t nbins, void* stream) {
-  const int smem = nbins * static_cast<int>(sizeof(uint32_t));
-  cudaError_t err = dbt::configure(histogram_kernel, false, histogram_ready);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = dbt::grid_for(n, kHistThreads, 1);
-  histogram_kernel<<<grid, kHistThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      keys, n, reinterpret_cast<uint32_t*>(out),
-      static_cast<uint32_t>(nbins));
-  return static_cast<int>(cudaGetLastError());
+                             int32_t nbins, int32_t blocks, int32_t mergers,
+                             int32_t* scratch, void* stream) {
+  if (nbins <= 0 || nbins % 128 || nbins > (1 << 14) || blocks < 1 ||
+      mergers < 1 || mergers > blocks || nbins % (8 * mergers) ||
+      (blocks > 1 && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t mis = (reinterpret_cast<uintptr_t>(keys) & 15) / 4;
+  const int64_t head = mis == 0 ? 0 : (4 - mis < n ? 4 - mis : n);
+  const int64_t nvec = (n - head) / 4;
+  // the most keys a block counts: its vectors, and block 0 the head and
+  // the tail; 16-bit copies hold them below 2^16
+  const int64_t lanes = (int64_t)blocks * kHistThreads;
+  const int64_t most = 4 * kHistThreads * ((nvec + lanes - 1) / lanes) + 8;
+  const uint32_t nb = static_cast<uint32_t>(nbins);
+  uint32_t* o = reinterpret_cast<uint32_t*>(out);
+  return static_cast<int>(
+      most < (1 << 16)
+          ? launch_histogram<true>(keys, n, head, nvec, nb, o, blocks,
+                                   mergers, scratch, s)
+          : launch_histogram<false>(keys, n, head, nvec, nb, o, blocks,
+                                    mergers, scratch, s));
+}
+
+// int32 scratch words of dbt_histogram with `blocks` copies of nbins bins:
+// the counters, then the copies.
+extern "C" int64_t dbt_histogram_scratch(int32_t nbins, int32_t blocks) {
+  return kCounterWords + (int64_t)nbins * blocks;
 }
 
 // Writes every bin of out (nbins, a multiple of 128 up to 2^16). cluster is a

@@ -9,16 +9,25 @@
 // (spos, sval)[:cap_single], multis' (chunk id, base) into
 // (mids, mbase)[:cap_mc]; the counts n_single and n_multi are full. spos past
 // n_single is set to 0x7FFFFFFF, the position sentinel the ordering sort puts
-// last (the TPU wrapper does this outside its kernel; here a fourth launch
-// reads n_single on the device). Other columns are garbage past their count.
+// last (the TPU wrapper does this outside its kernel). Other columns are
+// garbage past their count.
 //
 // The TPU kernel carries two running offsets through its sequential grid;
 // here the two-stream form of compact.cuh's one-pass compaction ranks every
-// chunk in both streams and looks back over two status words a tile (a kept
-// chunk's stat and base are read again, from the L2, when it is written),
-// then a second launch fills spos past n_single: two launches a call. At
-// 2^24 rows the chunk arrays are 2 x 512 KB, so the tail is launch-bound,
-// not bandwidth-bound.
+// chunk in both streams and looks back over two status words a tile, in one
+// launch with no memset. At 2^24 rows the chunk arrays are 2 x 512 KB and
+// the outputs 64 KB + 4 KB, so the tail is bound by its launch and the
+// look-back's chain of tiles, not by bandwidth (0.34 us of bytes). So:
+//   - TailOp's tiles are small, kThreads lanes of one run of 4 chunks
+//     (2048 chunks): at 2^17 chunks 64 blocks, where the engine's 8192-row
+//     tile gave 16; of 512, 1024, 2048 and 4096 chunks, 2048 was the
+//     fastest at 2^17 chunks on an H100 (PERF.md);
+//   - a kept chunk stages its index, and its stat and base are read again
+//     (from the L2) when it is written: staging its two output values in
+//     shared memory instead measured no faster (PERF.md);
+//   - the block of the last tile, which learns n_single, writes the
+//     sentinel over spos[n_single:cap_single] (64 KB at 2^24 rows) while
+//     it waits for the other blocks to finish: no second launch.
 #include "compact.cuh"
 
 namespace {
@@ -26,7 +35,8 @@ namespace {
 constexpr int32_t kBig = 0x7FFFFFFF;
 
 struct TailOp {
-  static constexpr int kVecs = 4;
+  static constexpr int kThreads = 512;
+  static constexpr int kVecs = 1;
   static constexpr int kMinBlocks = 2;
   struct Item {
     int32_t stat;
@@ -56,9 +66,9 @@ struct TailOp {
     keep[0] = cnt == 1 && vsw >= 1 && vsw <= 255;
     keep[1] = cnt >= 1 && !keep[0];
   }
-  // a kept chunk stages its index; its stat and base are read again (from
-  // the L2: 1 MB at 2^17 chunks) when it is written
   __device__ void prefetch(int64_t) const {}
+  // a kept chunk stages its index; its stat and base are read again when
+  // it is written
   __device__ uint32_t stage(const Item&, int64_t i, int) const {
     return static_cast<uint32_t>(i);
   }
@@ -77,18 +87,24 @@ struct TailOp {
     (s == 0 ? spos : mids)[pos] = v.a;
     (s == 0 ? sval : mbase)[pos] = v.b;
   }
-};
-
-__global__ void fill_past_count(int32_t* __restrict__ v, int64_t cap,
-                                const int32_t* __restrict__ count,
-                                int32_t value) {
-  const int64_t start = *count;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = start + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < cap; i += stride) {
-    v[i] = value;
+  // spos[n_single:cap] = kBig: 16 bytes a store between 16-byte boundaries
+  // (spos comes from torch.empty, so it is aligned), one word at the ends
+  __device__ void last_tile(const uint32_t (&count)[2]) const {
+    const int64_t lo = count[0] < cap[0] ? count[0] : cap[0];
+    const int64_t head = (lo + 3) & ~int64_t{3};
+    const int64_t body = cap[0] & ~int64_t{3};
+    const bool aligned = (reinterpret_cast<uintptr_t>(spos) & 15) == 0;
+    const int64_t vlo = aligned && head < body ? head : cap[0];
+    const int64_t vhi = aligned && head < body ? body : cap[0];
+    for (int64_t i = lo + threadIdx.x; i < vlo; i += kThreads) spos[i] = kBig;
+    for (int64_t i = vlo + 4 * threadIdx.x; i < vhi; i += 4 * kThreads) {
+      *reinterpret_cast<int4*>(spos + i) = make_int4(kBig, kBig, kBig, kBig);
+    }
+    for (int64_t i = vhi + threadIdx.x; i < cap[0]; i += kThreads) {
+      spos[i] = kBig;
+    }
   }
-}
+};
 
 }  // namespace
 
@@ -102,17 +118,10 @@ extern "C" int dbt_scan_tail_streams(const int32_t* stat, const int32_t* base,
                                      int32_t* mbase, int64_t cap_mc,
                                      int32_t* counts, int32_t* scratch,
                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   TailOp op{stat, base, threshold, spos, sval, mids, mbase,
             {cap_single, cap_mc}};
   const bool vec = ((reinterpret_cast<uintptr_t>(stat) |
                      reinterpret_cast<uintptr_t>(base)) & 15) == 0;
-  const cudaError_t err =
-      dbt::compact_streams<2>(op, nch, vec, counts, scratch, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (cap_single > 0) {
-    fill_past_count<<<dbt::grid_for(cap_single, 256, 4), 256, 0, s>>>(
-        spos, cap_single, counts, kBig);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dbt::compact_streams<2>(
+      op, nch, vec, counts, scratch, static_cast<cudaStream_t>(stream)));
 }

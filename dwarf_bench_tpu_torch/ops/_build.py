@@ -51,7 +51,8 @@ _I64 = ctypes.c_int64
 # name -> (argtypes, restype). Every pointer and the stream are c_void_p:
 # without argtypes ctypes would pass a Python int as a 32-bit C int.
 _SIGNATURES = {
-    "dbt_histogram": ([_P, _I64, _P, _I32, _P], ctypes.c_int),
+    "dbt_histogram": ([_P, _I64, _P, _I32, _I32, _I32, _P, _P], ctypes.c_int),
+    "dbt_histogram_scratch": ([_I32, _I32], _I64),
     "dbt_weighted_histogram": (
         [_P, _P, _I64, _P, _I32, _I32, _I32, _P, _P], ctypes.c_int),
     "dbt_weighted_histogram_max_clusters": ([_I32, _I32], ctypes.c_int),
@@ -100,6 +101,8 @@ LAUNCHES: Dict[str, int] = {
     "merge_bitonic": 0,
     "merge_fill": 0,
     "reduce_sum": 0,
+    # the sparse filter's phase A (csrc/chunk_stats.cu)
+    "chunk_stats": 0,
     # JAX names served by the kernels above or by csrc/chunk_stats.cu and
     # csrc/probe_dense.cu: each name's wrapper counts its own launches
     "chunk_stats_pallas": 0,
@@ -267,8 +270,8 @@ def stream_scratch(kind: str, device: torch.device, words: int) -> torch.Tensor:
     one stream runs in order, so a call never overlaps the last call that
     used the buffer; each stream has its own. It saves a torch.empty, and
     its host time, a call; a kernel that needs it zero must leave it zero
-    (``dbt_cumsum`` and the compactions do, and ``dbt_reduce_sum`` its
-    ticket)."""
+    (``dbt_cumsum`` and the compactions do, ``dbt_reduce_sum`` its
+    ticket and ``dbt_histogram`` its counters)."""
     index = device.index
     key = (kind, index, torch._C._cuda_getCurrentRawStream(index))
     buf = _STREAM_SCRATCH.get(key)

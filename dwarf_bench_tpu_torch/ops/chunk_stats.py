@@ -18,11 +18,11 @@ threshold at or below INT32_MIN + 512 ``threshold - 512`` wraps and the
 classification is garbage, which ``filter_sparse`` routes away.
 
 The JAX package computes this with XLA's fused row reductions, not a Pallas
-kernel, so plain torch ops serve here on every device, and this function is
-also the plain version of the kernel ``csrc/chunk_stats.cu``. That kernel
-serves the opt-in Pallas variants of the same contract
-(``chunk_stats_pallas.py``) in ``ops/chunk_stats_cuda.py``;
-``scan.filter_sparse(stats_pallas=True)`` runs it.
+kernel. Eager PyTorch has no such fusion, so the port computes it with the
+kernel ``csrc/chunk_stats.cu`` on the card (``ops/chunk_stats_cuda.py``, the
+default path of ``scan.filter_sparse`` and the opt-in Pallas variants of
+the same contract, ``chunk_stats_pallas.py``); this function is that
+kernel's plain version, which the CPU and the tests take.
 """
 
 from __future__ import annotations

@@ -131,12 +131,13 @@ def _nearest(words, s, flag) -> int:
                 len(words))
 
 
-def _tile_steps(t, k, agg, status, before, window, reads, finish):
+def _tile_steps(t, k, agg, status, write, window, reads, finish):
     """Block ``t`` of the kernel as a generator, one step a store or a read
     of its look-back window: publish each stream's aggregate, walk back to
     each stream's inclusive prefix (reading the window again while, in a
     stream still open, a word nearer than its nearest prefix is
-    unpublished), publish the prefixes, count itself finished."""
+    unpublished), publish the prefixes, write its kept rows
+    (``write(t, prefixes)``), count itself finished."""
     b = [0] * k
     if t:
         for s in range(k):
@@ -166,32 +167,35 @@ def _tile_steps(t, k, agg, status, before, window, reads, finish):
             if not any(open_):
                 break
             last -= window
-    before[t] = b
     for s in range(k):
         status[t][s] = _PREFIX << 32 | (b[s] + agg[t][s]) & _M32
         yield
+    write(t, b)
     finish()
 
 
 def _lookback_compact(keep: torch.Tensor, emit, caps, *, warps: int = 16,
                       vecs: int = 4, lanes: int = 32, window: int = 32,
-                      resident: int = 8, seed: Optional[int] = None):
+                      resident: int = 8, seed: Optional[int] = None,
+                      last_tile=None):
     """A compaction by the schedule of ``csrc/compact.cuh``, for the tests.
     ``keep`` is a (K, n) bool tensor, ``emit[s]`` the columns stream ``s``
     writes and ``caps[s]`` its slots. Tiles of warps x vecs x lanes x 4 rows
-    (the kernel's 16 x 4 x 32 x 4 for the mask and the scan tail, 16 x 8 x
-    32 x 4 for the filter) take tickets in order. With a ``seed``,
-    ``resident`` blocks run at a time, a new one starting as soon as one
-    ends, and the running blocks advance one step at a time in an order
-    drawn from it, so tiles publish out of order and a look-back finds
-    words unpublished, aggregates, prefixes, and with K = 2 one word of a
-    pair published; without one, each block runs to its end before the
-    next starts. The look-back reads ``window`` predecessors at a time (32
-    in the kernel: a word a lane of warp 0). Row r of
-    stream s goes to its tile's prefix + its rank, unless that reaches
-    ``caps[s]``; slots no row reaches are -1. Returns (outs a stream,
-    counts as 0-d int32 tensors, the states the look-backs read); asserts
-    that the last block out left every status word zero."""
+    (the kernel's 16 x 4 x 32 x 4 for the mask, 16 x 8 x 32 x 4 for the
+    filter, ``scan_tail_cuda.TAIL_TILE`` for the scan tail) take tickets in
+    order. With a ``seed``, ``resident`` blocks run at a time, a new one
+    starting as soon as one ends, and the running blocks advance one step at
+    a time in an order drawn from it, so tiles publish out of order and a
+    look-back finds words unpublished, aggregates, prefixes, and with K = 2
+    one word of a pair published; without one, each block runs to its end
+    before the next starts. The look-back reads ``window`` predecessors at a
+    time (32 in the kernel: a word a lane of warp 0). A block writes its
+    kept rows once its prefixes are known: row r of stream s goes to its
+    tile's prefix + its rank, unless that reaches ``caps[s]``; slots no row
+    reaches are -1. The last tile's block then calls ``last_tile(outs,
+    counts)`` (the kernel's Op::last_tile), if given. Returns (outs a
+    stream, counts as 0-d int32 tensors, the states the look-backs read);
+    asserts that the last block out left every status word zero."""
     k, n = keep.shape
     tile_rows = warps * vecs * lanes * 4
     ntiles = max(-(-n // tile_rows), 1)
@@ -202,9 +206,25 @@ def _lookback_compact(keep: torch.Tensor, emit, caps, *, warps: int = 16,
         for s in range(k)))
     agg = [[int(agg[s][t]) for s in range(k)] for t in range(ntiles)]
     status = [[0] * k for _ in range(ntiles)]
-    before = [None] * ntiles
     reads = collections.Counter()
     finished = [0]
+    outs = [tuple(torch.full((caps[s],), -1, dtype=torch.int32)
+                  for _ in emit[s]) for s in range(k)]
+    counts = [None] * k
+
+    def write(t, before):  # tile t's kept rows, then the last tile's counts
+        rows = slice(t * tile_rows, min((t + 1) * tile_rows, n))
+        for s in range(k):
+            pos = before[s] + ranks[s][t][: rows.stop - rows.start]
+            hit = flags[s, rows] & (pos < caps[s])
+            for o, col in zip(outs[s], emit[s]):
+                o[pos[hit]] = col.cpu()[rows][hit]
+        if t == ntiles - 1:
+            for s in range(k):
+                counts[s] = torch.tensor((before[s] + agg[t][s]) & _M32,
+                                         dtype=torch.int64).to(torch.int32)
+            if last_tile is not None:
+                last_tile(outs, counts)
 
     def finish():  # the last block out zeroes the status words
         finished[0] += 1
@@ -222,7 +242,7 @@ def _lookback_compact(keep: torch.Tensor, emit, caps, *, warps: int = 16,
         else:
             pick = int(rng.integers(len(live)))
         if pick == len(live):
-            live.append(_tile_steps(started, k, agg, status, before, window,
+            live.append(_tile_steps(started, k, agg, status, write, window,
                                     reads, finish))
             started += 1
             continue
@@ -231,22 +251,6 @@ def _lookback_compact(keep: torch.Tensor, emit, caps, *, warps: int = 16,
         except StopIteration:
             live.pop(pick)
     assert all(w == [0] * k for w in status), "status words left set"
-
-    outs, counts = [], []
-    b = torch.tensor(before, dtype=torch.int64).reshape(ntiles, k)
-    for s in range(k):
-        pos = (b[:, s, None] + ranks[s]).reshape(-1)[:n]
-        hit = keep[s].cpu() & (pos < caps[s])
-        idx = pos[hit]
-        col_out = []
-        for col in emit[s]:
-            o = torch.full((caps[s],), -1, dtype=torch.int32)
-            o[idx] = col.cpu()[hit]
-            col_out.append(o)
-        outs.append(tuple(col_out))
-        counts.append(torch.tensor(
-            (before[-1][s] + agg[-1][s]) & _M32, dtype=torch.int64
-        ).to(torch.int32))
     return outs, counts, reads
 
 

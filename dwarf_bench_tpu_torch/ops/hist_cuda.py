@@ -4,7 +4,13 @@ PyTorch twins.
 ``histogram`` is the contract of ``dwarf_bench_tpu/ops/hist_pallas.py``
 ``histogram_16k_swar_pallas`` (and ``ops/sort.histogram_16k``): a
 (hi_bins·128,) int32 count of keys, where a key whose uint32 value is at or
-above hi_bins·128 (negatives, EMPTY, padding) counts nowhere.
+above hi_bins·128 (negatives, EMPTY, padding) counts nowhere. Its kernel
+keeps a copy of the bins in each block's shared memory and merges the
+copies through a lasting scratch a stream, the last blocks to start adding
+a slice of the bins each, in one launch that writes every bin (no memset);
+``histogram_plan`` chooses the blocks and the mergers, and
+``_histogram_schedule`` renders the schedule in plain PyTorch for the
+tests.
 
 ``weighted_histogram`` is the contract of ``weighted_histogram_i8_swar_pallas``
 (hi_bins 256 and 512) and ``weighted_histogram_i8_pallas`` (hi_bins below
@@ -26,8 +32,10 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -35,6 +43,20 @@ from .primitives import as_u32, wrap_i32
 
 MAX_HIST_HI_BINS = 128  # 2^14 bins: 64 KB of shared memory per block
 MAX_WEIGHTED_HI_BINS = 512  # 2^16 bins, the G = 2^16 group-by
+
+# The count histogram's launch plan (csrc/hist.cu), chosen by the plan
+# sweep of ``utils/kernel_times.py --sweep histogram`` on an H100 (PERF.md):
+# blocks of HIST_THREADS lanes (the kernel's kHistThreads), each counting at
+# least HIST_BLOCK_ROWS keys into its own copy of the bins, at most
+# HIST_MAX_BLOCKS and as many as ``copy_bins_limit`` allows; and up to
+# HIST_MERGERS of them merging the copies. A merger waits for every block,
+# so HIST_MERGERS stays below the SMs of the card: the waiting blocks never
+# take all the room a block yet to start needs (the kernel refuses a plan
+# whose mergers the card cannot hold at once).
+HIST_THREADS = 512
+HIST_BLOCK_ROWS = 8192
+HIST_MAX_BLOCKS = 128
+HIST_MERGERS = 64
 
 # The weighted histogram's launch plan (csrc/hist.cu). A cluster of
 # ``cluster`` blocks holds one copy of the bins, nbins / cluster in each
@@ -67,16 +89,132 @@ def histogram_plain(k: torch.Tensor, hi_bins: int = 128) -> torch.Tensor:
     return torch.bincount(ku, minlength=nbins).to(torch.int32)
 
 
+def _pow2_at_most(x: int) -> int:
+    return 1 << (max(x, 1).bit_length() - 1)
+
+
+def histogram_plan(hi_bins: int, n: int) -> Tuple[int, int]:
+    """(blocks, mergers) of the count histogram of ``n`` keys into
+    hi_bins·128 bins: blocks of HIST_BLOCK_ROWS keys or more, at most
+    HIST_MAX_BLOCKS and ``copy_bins_limit`` // bins, at least one; and the
+    most mergers up to HIST_MERGERS that the blocks hold, a power of two
+    whose slices of the bins are whole 16-byte words of 16-bit bins."""
+    nbins = hi_bins * 128
+    blocks = max(min(n // HIST_BLOCK_ROWS, HIST_MAX_BLOCKS,
+                     copy_bins_limit(n, nbins) // nbins), 1)
+    mergers = min(HIST_MERGERS, _pow2_at_most(blocks),
+                  _pow2_at_most(nbins // 8))
+    return blocks, mergers
+
+
+def _narrow(threads: int, blocks: int, nvec: int) -> bool:
+    """Whether the kernel stores 16-bit copies of the bins: every block
+    counts fewer than 2^16 keys (at most its share of the ``nvec`` 16-byte
+    vectors, and block 0 the head and the tail)."""
+    lanes = threads * blocks
+    return 4 * threads * -(-nvec // lanes) + 8 < 1 << 16
+
+
+def merge_bytes(hi_bins: int, n: int) -> int:
+    """Bytes the count histogram's copies move on the wrapper's plan for
+    ``n`` aligned keys: each block's copy written once and read once, in
+    16-bit or 32-bit bins, mostly in the L2; 0 with one block. They are
+    the design's own scratch, not part of the function's bound."""
+    blocks, _ = histogram_plan(hi_bins, n)
+    if blocks == 1:
+        return 0
+    width = 2 if _narrow(HIST_THREADS, blocks, n // 4) else 4
+    return 2 * blocks * hi_bins * 128 * width
+
+
 def histogram(k: torch.Tensor, hi_bins: int = 128) -> torch.Tensor:
     nbins = _check_hi_bins("histogram", hi_bins, MAX_HIST_HI_BINS)
     device = _build.check_vectors("histogram", k)
     if device.type == "cpu":
         return histogram_plain(k, hi_bins)
-    out = torch.zeros(nbins, dtype=torch.int32, device=device)
-    _build.launch("dbt_histogram", device, k.data_ptr(), k.numel(),
-                  out.data_ptr(), nbins)
+    return launch_histogram(k, nbins, *histogram_plan(hi_bins, k.numel()))
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_words(nbins: int, blocks: int) -> int:
+    """int32 scratch words of the count histogram: the counters, then the
+    copies."""
+    return int(_build.library().dbt_histogram_scratch(nbins, blocks))
+
+
+def launch_histogram(k: torch.Tensor, nbins: int, blocks: int,
+                     mergers: int) -> torch.Tensor:
+    """The count-histogram kernel on a checked CUDA vector under an
+    explicit plan (``histogram_plan`` gives the wrapper's)."""
+    out = torch.empty(nbins, dtype=torch.int32, device=k.device)
+    # the counters are zero when made and left zero; every copy is written
+    # in full before it is read
+    scratch = None if blocks == 1 else _build.stream_scratch(
+        "histogram", k.device, _scratch_words(nbins, blocks))
+    _build.launch("dbt_histogram", k.device, k.data_ptr(), k.numel(),
+                  out.data_ptr(), nbins, blocks, mergers,
+                  None if scratch is None else scratch.data_ptr())
     _build.LAUNCHES["histogram"] += 1
     return out
+
+
+def _histogram_schedule(k: torch.Tensor, hi_bins: int, blocks: int,
+                        mergers: int, threads: int = HIST_THREADS,
+                        offset: int = 0, seed: int = 0):
+    """``histogram`` by the kernel's schedule, for the tests: the keys as
+    the kernel splits them (a view ``offset`` int32 past a 16-byte boundary:
+    the head before the next boundary, then 16-byte vectors, vector i to
+    block (i mod blocks·threads) // threads, and the ragged tail, head and
+    tail to block 0) into a copy a block, stored as 16-bit bins when every
+    block counts fewer than 2^16 keys. With more than one block the blocks
+    start in an order drawn from ``seed``; once every block is done, the
+    last ``mergers`` to start each add one slice of nbins / mergers bins
+    over the copies, and the last of them out puts the counters back.
+    ``threads`` other than the kernel's shrinks the schedule for small
+    inputs. Returns (out, the blocks that merged in the order of their
+    slices, whether the copies were 16-bit, the counters after the
+    call)."""
+    nbins = hi_bins * 128
+    n = k.numel()
+    assert 1 <= mergers <= blocks and nbins % (8 * mergers) == 0
+    ku = as_u32(k.cpu())
+    head = min((4 - offset % 4) % 4, n)
+    nvec = (n - head) // 4
+    row = torch.arange(n, dtype=torch.int64)
+    vec = (row - head) // 4
+    block = torch.where((row >= head) & (vec < nvec),
+                        (vec % (blocks * threads)) // threads, 0)
+    keep = ku < nbins
+    copies = torch.zeros(blocks * nbins, dtype=torch.int64)
+    copies.index_add_(0, block[keep] * nbins + ku[keep],
+                      torch.ones(int(keep.sum()), dtype=torch.int64))
+    copies = copies.view(blocks, nbins)
+    narrow = _narrow(threads, blocks, nvec)
+    if blocks == 1:
+        return wrap_i32(copies[0]), [], narrow, [0, 0, 0]
+    if narrow:  # the 16-bit copies hold every count
+        assert int(torch.bincount(block).max()) < 1 << 16
+        copies = copies & 0xFFFF
+    rng = np.random.default_rng(seed)
+    counters = [0, 0, 0]  # start tickets, blocks done, mergers done
+    start = {}
+    for b in rng.permutation(blocks):  # the order the blocks start in
+        start[int(b)] = counters[0]
+        counters[0] += 1
+    counters[1] = blocks  # every block is done: each merger's wait ends
+    out = torch.empty(nbins, dtype=torch.int64)
+    slice_ = nbins // mergers
+    merged = [None] * mergers
+    for b, t in start.items():
+        m = t - (blocks - mergers)
+        if m >= 0:
+            lo = m * slice_
+            out[lo: lo + slice_] = copies[:, lo: lo + slice_].sum(0)
+            merged[m] = b
+            counters[2] += 1
+            if counters[2] == mergers:  # the last merger out
+                counters = [0, 0, 0]
+    return wrap_i32(out), merged, narrow, counters
 
 
 def weighted_histogram_plain(

@@ -8,8 +8,8 @@ The port of ``dwarf_bench_tpu/ops/scan.py``. The reference's TwoPassScan
   * ``filter_two_pass``: per-tile counts, exclusive tile offsets, scatter at
     tile offset + rank within the tile, in plain torch;
   * ``filter_sparse``: the sparsity-adaptive engine, with the kernels
-    ``scan_tail_streams``, ``compact_mask``, ``emit_prefix`` and, where its
-    caps trip, ``filter``.
+    ``chunk_stats`` (and ``cumsum``), ``scan_tail_streams``,
+    ``compact_mask``, ``emit_prefix`` and, where its caps trip, ``filter``.
 
 Outputs follow the fixed-capacity + count pattern: ``(out[capacity], count)``
 with garbage past ``count`` and ``count`` a 0-d int32 tensor on the input's
@@ -135,10 +135,11 @@ def filter_sparse(
     The reference predicate (x < 5 over uniform [1, 10000]) keeps ~0.04 % of
     the rows, so the engine avoids a full compaction of x:
 
-      phase A (``chunk_stats``): per 128-row chunk the match count, the
-        window-encoded match sum and the exclusive output offset. A chunk
-        with one match inside the 255-wide window below the threshold needs
-        no second read of x: its value is ``threshold - vsum``.
+      phase A (kernel ``chunk_stats``, then ``cumsum``): per 128-row chunk
+        the match count, the window-encoded match sum and the exclusive
+        output offset. A chunk with one match inside the 255-wide window
+        below the threshold needs no second read of x: its value is
+        ``threshold - vsum``.
       tail (kernel ``scan_tail_streams``): singles' (position, value) and the
         other matching chunks' (id, offset) compacted in one pass.
       phase B: the <= ``cap_mc`` multi chunks are gathered, their matches
@@ -160,7 +161,9 @@ def filter_sparse(
     value) and the multi chunks' ids are compacted separately
     (``compact_mask``, 2 columns, then 1) and the multis' offsets gathered
     from ``base``. The rest is the same. None (the default) is the
-    streaming tail above.
+    streaming tail above, with phase A from ``chunk_stats_cuda.chunk_stats``
+    (the kernel on the card, the plain ``chunk_stats`` on the CPU) where the
+    JAX package fuses ``chunk_stats_xla`` with XLA.
 
     ``assume_sparse=True`` (PRECONDITION: ``sparse_caps_ok`` holds on the
     host) runs the sparse pipeline without looking at the caps, and reads
@@ -197,7 +200,7 @@ def filter_sparse(
     nch = xp.shape[0] // chunk
     x2 = xp.view(nch, chunk)
     if stats_pallas is None:
-        stat, base = chunk_stats(x2, thr)
+        stat, base = chunk_stats_cuda.chunk_stats(x2, thr)
         spos, sval, mids, mbase, n_single, n_multi = (
             scan_tail_cuda.scan_tail_streams(stat, base, thr, cap_single,
                                              cap_mc)

@@ -18,10 +18,11 @@ single. Returns ``(spos, sval, mids, mbase, n_single, n_multi)``:
 function's limit of 2^18 chunks.
 
 A wrapper takes the twin only for a CPU tensor; for a CUDA tensor it
-launches the kernel or raises: two launches a call (the two-stream
-compaction of ``csrc/compact.cuh``, then the sentinel fill), no memset.
-``_lookback_tail`` runs the compaction's schedule in plain PyTorch
-(``compact_cuda._lookback_compact``) for the tests.
+launches the kernel or raises: one launch a call (the two-stream compaction
+of ``csrc/compact.cuh``, whose last tile's block also writes the sentinel),
+no memset. ``_lookback_tail`` runs the kernel's schedule in plain PyTorch
+(``compact_cuda._lookback_compact`` at the kernel's tile, ``TAIL_TILE``)
+for the tests.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ from . import _build, compact_cuda
 from .primitives import compact_multi
 
 BIG = 0x7FFFFFFF  # position sentinel: sorts after every real position
+# the kernel's tile (TailOp in csrc/scan_tail.cu): 16 warps of lanes of one
+# run of 4 chunks, 2048 chunks
+TAIL_TILE = dict(warps=16, vecs=1, lanes=32, window=32)
 
 
 def _check(stat, base, threshold, cap_single, cap_mc):
@@ -75,17 +79,23 @@ def scan_tail_streams_plain(stat, base, threshold: int, cap_single: int,
 
 def _lookback_tail(stat, base, threshold: int, cap_single: int, cap_mc: int,
                    **schedule):
-    """``scan_tail_streams`` by the kernel's schedule, two streams over two
-    status words a tile: ``(spos, sval, mids, mbase, n_single, n_multi,
-    reads)``."""
+    """``scan_tail_streams`` by the kernel's schedule (``TAIL_TILE`` unless
+    ``schedule`` says otherwise), two streams over two status words a tile,
+    the last tile's block writing the sentinel past n_single:
+    ``(spos, sval, mids, mbase, n_single, n_multi, reads)``."""
     _, thr, cap_single, cap_mc = _check(stat, base, threshold, cap_single,
                                         cap_mc)
     keep, cols = _streams(stat, base, thr)
+
+    def sentinel(outs, counts):  # TailOp::last_tile
+        outs[0][0][int(counts[0]):] = BIG
+
     ((spos, sval), (mids, mbase)), (n_single, n_multi), reads = \
         compact_cuda._lookback_compact(torch.stack(keep), cols,
-                                       (cap_single, cap_mc), **schedule)
-    return (_past_count(spos, n_single), sval, mids, mbase, n_single,
-            n_multi, reads)
+                                       (cap_single, cap_mc),
+                                       **{**TAIL_TILE, **schedule},
+                                       last_tile=sentinel)
+    return spos, sval, mids, mbase, n_single, n_multi, reads
 
 
 def scan_tail_streams(stat, base, threshold: int, cap_single: int,

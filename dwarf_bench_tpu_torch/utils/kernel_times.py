@@ -1,9 +1,9 @@
-"""Times of the cumsum, weighted-histogram, bitonic-merge, sum, merge-fill,
-vadd and compaction kernels, their library calls, and the host cost of a
-kernel launch, on one CUDA card.
+"""Times of the cumsum, histogram, weighted-histogram, bitonic-merge, sum,
+merge-fill, vadd, compaction and sparse-scan kernels, their library calls,
+and the host cost of a kernel launch, on one CUDA card.
 
     python dwarf_bench_tpu_torch/utils/kernel_times.py [--root DIR] [--sweep]
-        [--host] [--label NAME]
+        [--host] [--label NAME] [--only GROUP,...]
 
 ``--root`` names the checkout whose ``dwarf_bench_tpu_torch`` is timed
 (default: the one holding this file), so that two commits can be compared on
@@ -19,11 +19,22 @@ config-#4 probe) and 2^21 x 4 (``probe_merge_bitonic`` of the CSR join at
 2^20), the sum at 2^24, the fill at 2^25 in its three modes, vadd at 2^24
 float32, the filter at 2^24 (x < 5) and 2^20 (x < 5000), compact_mask at
 the scan's 65536 x 2, at 2^24 x 1 and x 3, at the probe's 2^25 x 2 and x 1
-(membership) and at the CSR build's 2^20 x 2, and the scan tail at 2^17
-chunks. ``--sweep`` times the weighted histogram under every (cluster,
-copies) plan at the main-path shapes and ``--host`` breaks one launch's host
-time down over 10^4 calls; ``--sweep`` needs the newer checkout. Prints one
-JSON object a line, each with the card's name and power limit.
+(membership) and at the CSR build's 2^20 x 2 (group ``core``, then
+``compaction``); (group ``histogram``) ``hist_cuda.histogram`` at Radix's
+hi80 2^22, the JoinOmnisci build's hi128 2^20 and every key in one bin,
+against ``torch.bincount``, and the histogram's seven other names at their
+mains' shapes; and (group ``scan``) the scan tail at 2^17 chunks (2^24
+rows, x < 5) and 2^13 (2^20 rows, x < 5000) under its two names, phase A of
+``scan.filter_sparse``'s default path (``chunk_stats_cuda.chunk_stats``
+where the checkout has it, else the eager ``chunk_stats``) and
+``chunk_stats_pallas`` at both and ``filter_sparse`` itself at 2^24 x < 5
+and 2^20 x < 5000; each with the kernels and memsets a call puts on the
+card (``device_ops``). ``--only`` runs the named groups.
+``--sweep`` times the weighted histogram under every (cluster, copies) plan
+and the count histogram under every (blocks, mergers) plan at the
+main-path shapes and ``--host`` breaks one launch's host time down over
+10^4 calls; ``--sweep`` needs the newer checkout. Prints one JSON object a
+line, each with the card's name and power limit.
 
 Per case: ``events_ms``, the median of CUDA-event brackets around single
 calls (the host's dispatch shows when it is slower than the card);
@@ -31,8 +42,10 @@ calls (the host's dispatch shows when it is slower than the card);
 ``graph_ms`` (the merge, the sum, the fill, vadd, the compactions), CUDA
 events around replays of a CUDA graph of several calls, which no trace can
 thin out; ``kernels_ms`` (the merge, the fill, vadd, the compactions), each
-kernel of one call in launch order; ``bound_ms`` (the compactions), the
-bytes a call must move at 3.35 TB/s (``copy_if_bytes``, ``mask_bytes``);
+kernel of one call in launch order; ``bound_ms`` (the compactions, the
+histogram, the scan), the bytes a call must move at 3.35 TB/s
+(``copy_if_bytes``, ``mask_bytes``); ``copies_bytes`` (the histogram), the
+bytes its copies add, beside the bound and not in it;
 ``cold_ms``, the median event bracket with ``FLUSH_BYTES`` written and then
 half of them read back just before it, outside the bracket: the inputs are
 no longer in the 50 MB L2, the lines it holds are clean (a write alone
@@ -428,6 +441,115 @@ def compaction_lines(root_label: str, dev, emit) -> None:
                                    base, 5, 16384, 512)})
 
 
+def _case(root_label, emit, label, fn, args, nbytes=None, graph=True,
+          **extra) -> None:
+    """One case's line: its times, the kernels and memsets a call (with
+    ``graph``) and the bound of ``nbytes`` moved."""
+    line = {"root": root_label, "case": label,
+            **times(fn, *args, graph=graph)}
+    if graph:
+        line["kernels"], line["memsets"] = device_ops(fn, *args)
+    if nbytes is not None:
+        line["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    emit({**line, **extra})
+
+
+def histogram_lines(root_label: str, dev, emit) -> None:
+    """The count histogram at the shapes its paths give it and under its
+    JAX names, with the kernels and memsets a call, the bound of the keys
+    read and the bins written, and apart from it the bytes of the copies
+    that the wrapper's plan writes and reads back (mostly in the L2)."""
+    from dwarf_bench_tpu_torch.ops import hist_cuda, measure_variants
+
+    rng = np.random.default_rng(7)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def case(label, fn, args, nbytes=None, graph=True, **extra):
+        _case(root_label, emit, label, fn, args, nbytes, graph, **extra)
+
+    radix_k = t(rng.integers(1, 10000, 1 << 22, endpoint=True) - 1)
+    join_k = t(rng.integers(1, 10000, 1 << 20, endpoint=True) - 1)
+    for label, k, hb in (("hi80 2^22 (Radix)", radix_k, 80),
+                         ("hi128 2^20 (JoinOmnisci build)", join_k, 128),
+                         ("hi80 2^22, one bin", torch.full_like(radix_k, 77),
+                          80)):
+        nbins = hb * 128
+        extra = {}
+        if hasattr(hist_cuda, "merge_bytes"):  # a checkout with copies
+            extra["copies_bytes"] = hist_cuda.merge_bytes(hb, k.numel())
+        case(f"histogram {label}", hist_cuda.histogram, (k, hb),
+             4 * (k.numel() + nbins), **extra)
+        # torch.bincount reads its size back to the host: no graph
+        case(f"torch.bincount {label}",
+             lambda v, nb=nbins: torch.bincount(v, minlength=nb), (k,),
+             graph=False)
+    # the JAX names the histogram kernel serves, at their mains' shapes
+    mv = measure_variants
+    x22 = t(rng.integers(1, 10000, 1 << 22, endpoint=True))
+    for name, fn in (
+            ("histogram_16k_pallas hi80", lambda k: hist_cuda.
+             histogram_16k_pallas(k, 80)),
+            ("histogram_16k_i8cmp hi128", mv.histogram_16k_i8cmp),
+            ("hist16k_bf16cmp hi128", mv.hist16k_bf16cmp),
+            ("hist_variant hi128 i16", lambda k: mv.hist_variant(
+                k, 128, i16=True)),
+            ("hist_rows hi128 rows 32", lambda k: mv.hist_rows(
+                k, 128, rows=32)),
+            ("hist_swar hi80 f5", lambda k: mv.hist_swar(k, 80, "f5"))):
+        case(f"{name} 2^22", fn, (x22,))
+    case("dyn_store_probe 256 indices", mv.dyn_store_probe,
+         (t(rng.integers(0, 64 * 128, 256)),))
+
+
+def scan_lines(root_label: str, dev, emit) -> None:
+    """The scan tail, phase A and ``filter_sparse`` at the shapes their
+    paths give them, with the kernels and memsets a call and the bound of
+    the bytes it must move."""
+    from dwarf_bench_tpu_torch.ops import (
+        chunk_stats_cuda,
+        scan,
+        scan_tail_cuda,
+    )
+    from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
+
+    rng = np.random.default_rng(7)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def case(label, fn, args, nbytes=None, graph=True):
+        _case(root_label, emit, label, fn, args, nbytes, graph)
+
+    x24 = rng.integers(1, 10000, 1 << 24, endpoint=True).astype(np.int32)
+    x20 = rng.integers(1, 10000, 1 << 20, endpoint=True).astype(np.int32)
+    phase_a = getattr(chunk_stats_cuda, "chunk_stats", chunk_stats)
+    for label, x, thr in (("2^24 x<5", x24, 5), ("2^20 x<5000", x20, 5000)):
+        xd = t(x)
+        n, nch = x.size, x.size // 128
+        x2 = xd.view(nch, 128)
+        case(f"phase A {label}", phase_a, (x2, thr), 4 * (n + 2 * nch))
+        case(f"chunk_stats_pallas {label}", chunk_stats_cuda.
+             chunk_stats_pallas, (x2, thr), 4 * (n + 2 * nch))
+        stat, base = chunk_stats(x2, thr)
+        caps = (max(16384, n >> 10), max(512, n >> 15))
+        res = scan_tail_cuda.scan_tail_streams_plain(stat, base, thr, *caps)
+        nbytes = 4 * (2 * nch + caps[0] + int(res[4]) + 2 * int(res[5]) + 2)
+        case(f"scan_tail_streams {nch} chunks ({label})",
+             scan_tail_cuda.scan_tail_streams, (stat, base, thr, *caps),
+             nbytes)
+        case(f"scan_tail_compact {nch} chunks ({label})",
+             scan_tail_cuda.scan_tail_compact, (stat, base, thr, *caps),
+             nbytes)
+        # the caps trip at 2^20 x < 5000: a host read picks the branch
+        sparse = scan.sparse_caps_ok(x, thr)
+        case(f"filter_sparse {label}",
+             lambda v, th=thr, a=sparse: scan.filter_sparse(
+                 v, th, assume_sparse=a), (xd,), graph=sparse)
+        del xd, x2, stat, base
+
+
 def case_lines(root_label: str, dev, emit) -> None:
     from dwarf_bench_tpu_torch.ops import (
         bitonic_cuda,
@@ -491,7 +613,33 @@ def case_lines(root_label: str, dev, emit) -> None:
     emit({"root": root_label, "case": "torch.add 2^24 f32",
           **times(torch.add, a, b, graph=True)})
     del a, b
-    compaction_lines(root_label, dev, emit)
+
+
+def histogram_sweep_lines(dev, emit) -> None:
+    """The count histogram under each (blocks, mergers) plan at the
+    main-path shapes; the wrapper's own plan is marked."""
+    from dwarf_bench_tpu_torch.ops import hist_cuda
+
+    rng = np.random.default_rng(3)
+    shapes = [("hi80 2^22", 80, rng.integers(0, 10000, 1 << 22)),
+              ("hi128 2^20", 128, rng.integers(0, 10000, 1 << 20))]
+    for label, hb, keys in shapes:
+        nbins = hb * 128
+        n = keys.size
+        k = torch.from_numpy(keys.astype(np.int32)).to(dev)
+        exp = hist_cuda.histogram_plain(k, hb)
+        plan = hist_cuda.histogram_plan(hb, n)
+        for blocks in (32, 64, 128, 132, 256):
+            for mergers in (16, 32, 64):
+                if mergers > blocks or blocks * nbins > max(n, nbins):
+                    continue
+                p = (blocks, mergers)
+                fn = (lambda a, p=p: hist_cuda.launch_histogram(a, nbins, *p))
+                ok = torch.equal(fn(k), exp)
+                emit({"sweep": f"histogram {label}", "blocks": blocks,
+                      "mergers": mergers, "ok": ok,
+                      "wrapper_plan": p == plan, "graph_ms": graph_ms(fn, k),
+                      "cold_ms": cold_ms(fn, k, k=10)})
 
 
 def sweep_lines(dev, emit) -> None:
@@ -540,12 +688,16 @@ def host_lines(dev, emit) -> None:
     at 4096 rows (so the card keeps up with the host)."""
     from dwarf_bench_tpu_torch.ops import (
         _build,
+        chunk_stats_cuda,
         compact_cuda,
         cumsum_cuda,
         filter_cuda,
         hist_cuda,
         reduce_cuda,
+        scan,
+        scan_tail_cuda,
     )
+    from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
 
     calls = 10_000
     n = 4096
@@ -575,6 +727,9 @@ def host_lines(dev, emit) -> None:
                                      reduce_cuda.SCRATCH_WORDS)
     rs, rwords = rscratch.data_ptr(), rscratch.numel()
     mask = x > 0
+    phase_a = getattr(chunk_stats_cuda, "chunk_stats", chunk_stats)
+    x2 = torch.full((n, 128), 9, dtype=torch.int32, device=dev)
+    x19 = x2.view(-1)[: 1 << 19]
     pieces = [
         ("ctypes call, n = 0 (returns before any CUDA call)",
          lambda: fn(xp, 0, None, -1, op, sp, stream)),
@@ -620,6 +775,13 @@ def host_lines(dev, emit) -> None:
          lambda: lib.dbt_reduce_sum(xp, n, op, rs, rwords, stream)),
         ("launch('dbt_reduce_sum')",
          lambda: _build.launch("dbt_reduce_sum", dev, xp, n, op, rs, rwords)),
+        ("histogram wrapper hi80", lambda: hist_cuda.histogram(k, 80)),
+        ("scan_tail_streams wrapper",
+         lambda: scan_tail_cuda.scan_tail_streams(x, x, 5, 16384, 512)),
+        ("phase A of filter_sparse (4096 x 128)",
+         lambda: phase_a(x2, 5)),
+        ("filter_sparse(assume_sparse=True), 2^19 rows",
+         lambda: scan.filter_sparse(x19, assume_sparse=True)),
         ("filter wrapper", lambda: filter_cuda.filter(x, 5)),
         ("compact_mask wrapper, 2 cols",
          lambda: compact_cuda.compact_mask(mask, (x, x), 1024)),
@@ -645,8 +807,13 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
     parser.add_argument("--label", default=None)
-    parser.add_argument("--sweep", action="store_true")
+    parser.add_argument("--sweep", nargs="?", const="histogram,weighted",
+                        default="", help="plan sweeps, of histogram and "
+                        "weighted")
     parser.add_argument("--host", action="store_true")
+    parser.add_argument("--only", default="core,compaction,histogram,scan",
+                        help="case groups, of core, compaction, histogram "
+                        "and scan")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: CUDA is not available", file=sys.stderr)
@@ -660,9 +827,14 @@ def main(argv=None) -> int:
     def emit(line):
         print(json.dumps({"card": card, **line}), flush=True)
 
-    case_lines(args.label or args.root, dev, emit)
-    if args.sweep:
-        sweep_lines(dev, emit)
+    label = args.label or args.root
+    groups = {"core": case_lines, "compaction": compaction_lines,
+              "histogram": histogram_lines, "scan": scan_lines}
+    for group in args.only.split(","):
+        groups[group](label, dev, emit)
+    sweeps = {"histogram": histogram_sweep_lines, "weighted": sweep_lines}
+    for name in filter(None, args.sweep.split(",")):
+        sweeps[name](dev, emit)
     if args.host:
         host_lines(dev, emit)
     return 0

@@ -2,7 +2,8 @@
 rendered in plain PyTorch (``compact_cuda._lookback_compact``), against the
 JAX package's Pallas kernels in interpret mode: ``compact_mask_pallas``,
 ``filter_pallas`` and ``scan_tail_streams``, on the same numpy-seeded
-inputs. Tiles of 8-64 rows and the kernel's 8192; blocks interleaved in a
+inputs. Tiles of 8-64 rows and the kernel's (8192 rows for the mask, 16384
+for the filter, 2048 chunks for the scan tail); blocks interleaved in a
 scrambled order, so that a look-back reads words unpublished, aggregates and
 prefixes, and with two streams a pair with one word published; capacities
 that cut inside a tile. Every output is an integer: the tolerance is exact
@@ -20,10 +21,11 @@ from dwarf_bench_tpu.ops.scan_tail_pallas import scan_tail_streams as jax_tail
 from dwarf_bench_tpu_torch.ops import compact_cuda, filter_cuda, scan_tail_cuda
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
-# the kernel's tiles: 8192 rows for the mask and the scan tail, 16384 for
-# the filter
+# the kernel's tiles: 8192 rows for the mask, 16384 for the filter, 2048
+# chunks for the scan tail
 KERNEL_TILE = dict(warps=16, vecs=4, lanes=32, window=32)
 FILTER_TILE = dict(KERNEL_TILE, vecs=8)
+TAIL_TILE = scan_tail_cuda.TAIL_TILE
 
 # (warps, vecs, lanes, window): tiles of 8, 16, 32 and 64 rows, and 64
 # rows in two groups of 4 runs
@@ -217,7 +219,7 @@ def test_scan_tail_schedule_matches_pallas(tail_case, shape, caps):
     """Two streams over two status words a tile; with caps (101, 57) both
     streams are cut, each inside a tile."""
     stat, base = tail_case
-    schedule = KERNEL_TILE if shape is None else _schedule(shape, seed=5)
+    schedule = TAIL_TILE if shape is None else _schedule(shape, seed=5)
     got = scan_tail_cuda._lookback_tail(_t(stat), _t(base), 5, *caps,
                                         **schedule)
     ref = [np.asarray(r) for r in jax_tail(jnp.asarray(stat),
@@ -256,12 +258,13 @@ def test_schedule_any_length(rng, n, k):
         assert bool((outs[s][0][kk:] == -1).all())
 
 
-@pytest.mark.parametrize("vecs", [4, 8])
+@pytest.mark.parametrize("vecs", [1, 4, 8])
 def test_in_tile_ranks_are_the_row_order(vecs):
     """The packed-byte ranks equal the exclusive count of kept rows before
     each row of its tile, at a warp's whole 32 lanes with every row kept
-    (128 a run, the most one byte holds) and at random flags: the mask's and
-    the scan tail's tiles (one group of 4 runs) and the filter's (two)."""
+    (128 a run, the most one byte holds) and at random flags: the scan
+    tail's tiles (one run a group), the mask's (one group of 4 runs) and
+    the filter's (two)."""
     rng = np.random.default_rng(13)
     for keep in (np.ones((2, 16, vecs, 32, 4), bool),
                  rng.random((3, 16, vecs, 32, 4)) < 0.5):

@@ -75,6 +75,95 @@ def test_histogram(cuda, rng, hi_bins, n):
                        hist_cuda.histogram_plain(k, hi_bins))
 
 
+@pytest.mark.parametrize("hi_bins,n", [(80, 1 << 22), (128, 1 << 20),
+                                       (8, 100_003), (128, 1)])
+def test_histogram_plan(cuda, rng, hi_bins, n):
+    """The wrapper's plan at the main-path shapes (Radix hi80 at 2^22, the
+    JoinOmnisci build hi128 at 2^20) and at small ones: its copies hold no
+    more bins than the keys, and the result is exact."""
+    blocks, mergers = hist_cuda.histogram_plan(hi_bins, n)
+    assert blocks * hi_bins * 128 <= max(hi_bins * 128, n)
+    assert mergers <= blocks and hi_bins * 128 % (8 * mergers) == 0
+    k = _t(rng.integers(-3, hi_bins * 128 + 3, n), cuda)
+    assert torch.equal(hist_cuda.histogram(k, hi_bins),
+                       hist_cuda.histogram_plain(k, hi_bins))
+
+
+@pytest.mark.parametrize("blocks,mergers", [(1, 1), (5, 1), (5, 4), (16, 16),
+                                            (64, 64), (128, 32), (3, 2),
+                                            (132, 64), (256, 16)])
+def test_histogram_explicit_plans(cuda, rng, blocks, mergers):
+    """Plans with 16-bit copies (every block under 2^16 keys) and, with few
+    blocks, 32-bit ones; views off 16 bytes take the scalar head and tail.
+    The counters are left zero: each next call on the stream is exact."""
+    for n in (300_007, 1 << 20, 1 << 22):
+        k = _t(rng.integers(-3, 80 * 128 + 3, n), cuda)
+        for off in (0, 1, 2, 3):
+            assert torch.equal(hist_cuda.launch_histogram(
+                k[off:], 80 * 128, blocks, mergers),
+                hist_cuda.histogram_plain(k[off:], 80))
+
+
+def test_histogram_refuses_more_mergers_than_the_card_holds(cuda, rng):
+    """A merger waits for every block, so a plan whose mergers the card
+    cannot hold at once would never finish: the kernel refuses it, and the
+    next call on the stream is exact."""
+    k = _t(rng.integers(0, 8192, 1 << 22), cuda)
+    # 8192 bins: at most 4 blocks of 512 lanes an SM, 528 on an H100
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        hist_cuda.launch_histogram(k, 8192, 1024, 1024)
+    assert torch.equal(hist_cuda.histogram(k, 64),
+                       hist_cuda.histogram_plain(k, 64))
+
+
+@pytest.mark.parametrize("off", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 4097, 1 << 20])
+def test_histogram_of_views_off_16_bytes(cuda, rng, off, n):
+    k = _t(rng.integers(-3, 128 * 128 + 3, n + off), cuda)[off:]
+    assert torch.equal(hist_cuda.histogram(k, 128),
+                       hist_cuda.histogram_plain(k, 128))
+
+
+@pytest.mark.parametrize("hi_bins,n", [(80, 1 << 22), (128, 1 << 20),
+                                       (1, 77_777)])
+def test_histogram_of_one_bin(cuda, hi_bins, n):
+    """Every key in one bin (a hot key), in range or not."""
+    for key in (0, 3, hi_bins * 128 - 1, hi_bins * 128, -1):
+        k = torch.full((n,), key, dtype=torch.int32, device=cuda)
+        assert torch.equal(hist_cuda.histogram(k, hi_bins),
+                           hist_cuda.histogram_plain(k, hi_bins))
+
+
+@pytest.mark.parametrize("hi_bins,n", [(80, 1 << 22), (128, 1 << 20)])
+def test_histogram_is_one_kernel_and_no_memset(cuda, rng, hi_bins, n):
+    k = _t(rng.integers(0, 10000, n), cuda)
+    assert device_ops(hist_cuda.histogram, k, hi_bins) == (1, 0)
+
+
+def test_histogram_back_to_back_and_on_two_streams(cuda, rng):
+    """Calls queued back to back on one stream, each finding the tickets
+    the one before left at 0, and three on each of two streams behind a
+    sleep, each stream with its own scratch."""
+    ks = [_t(rng.integers(0, 10000, 1 << 22), cuda),
+          _t(rng.integers(0, 16384, 1 << 20), cuda)]
+    shapes = [(ks[0], 80), (ks[1], 128), (ks[0][3:], 80), (ks[1], 8)]
+    got = [hist_cuda.histogram(k, hb) for k, hb in shapes * 2]
+    for g, (k, hb) in zip(got, shapes * 2):
+        assert torch.equal(g, hist_cuda.histogram_plain(k, hb))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for i, st in enumerate(streams):
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(5_000_000)
+            outs[i] = [hist_cuda.histogram(ks[i], 80 if i == 0 else 128)
+                       for _ in range(3)]
+    torch.cuda.synchronize()
+    for i, hb in enumerate((80, 128)):
+        exp = hist_cuda.histogram_plain(ks[i], hb)
+        assert all(torch.equal(o, exp) for o in outs[i])
+
+
 @pytest.mark.parametrize("hi_bins", [1, 8, 64, 256, 512])
 def test_weighted_histogram(cuda, rng, hi_bins):
     n = 1_000_003
@@ -257,9 +346,10 @@ def test_scan_tail_streams(cuda, rng, nch, density):
         assert _same_prefix(got[3], exp[3], min(nm, caps[1]))
 
 
-# rows a block of csrc/compact.cuh compacts: for compact_mask and the scan
-# tail, and for the filter
+# rows a block of csrc/compact.cuh compacts: for compact_mask, for the
+# filter, and chunks for the scan tail
 COMPACT_TILE, FILTER_TILE = 8192, 16384
+TAIL_TILE = 2048
 
 
 def _tile_sizes(tile):
@@ -340,6 +430,31 @@ def test_filter_and_scan_tail_of_views_off_16_bytes(cuda, rng, offset):
     assert _same_prefix(got[1], exp[1], min(ns, 16384))
     assert _same_prefix(got[2], exp[2], min(nm, 2048))
     assert _same_prefix(got[3], exp[3], min(nm, 2048))
+
+
+@pytest.mark.parametrize("nch", [1, TAIL_TILE - 1, TAIL_TILE, TAIL_TILE + 1,
+                                 8192, 131072, 131073])
+def test_scan_tail_tile_boundaries_and_sentinel(cuda, rng, nch):
+    """The scan tail at its tile's boundaries; n_single 0, equal to
+    cap_single, and above it: spos is exact whole (the last tile's block
+    writes the sentinel past n_single)."""
+    x = rng.integers(5, 10001, (nch, 128))
+    single = rng.random(nch) < 0.3
+    x[single, rng.integers(0, 128, int(single.sum()))] = 3
+    stat, base = chunk_stats(_t(x, cuda), 5)
+    ns = int(single.sum())
+    for caps in ((16384, 512), (ns, 512), (max(ns - 1, 0), 512), (0, 0),
+                 (ns + 5, 1)):
+        got = scan_tail_cuda.scan_tail_streams(stat, base, 5, *caps)
+        exp = scan_tail_cuda.scan_tail_streams_plain(stat, base, 5, *caps)
+        assert (int(exp[4]), int(exp[5])) == (ns, 0)
+        assert (int(got[4]), int(got[5])) == (ns, 0)
+        assert torch.equal(got[0], exp[0])
+        assert _same_prefix(got[1], exp[1], min(ns, caps[0]))
+    # no single at all: spos is the sentinel whole
+    none = chunk_stats(_t(np.full((nch, 128), 9), cuda), 5)
+    got = scan_tail_cuda.scan_tail_streams(*none, 5, 16384, 512)
+    assert int(got[4]) == 0 and bool((got[0] == 0x7FFFFFFF).all())
 
 
 def _compaction_calls(rng, device):
@@ -445,9 +560,9 @@ def test_compactions_replay_in_a_captured_graph(cuda, rng):
 
 @pytest.mark.parametrize("n", [0, 65536, 1 << 25])
 def test_compactions_are_one_kernel_and_no_memset(cuda, rng, n):
-    """compact_mask with 1-3 columns and the filter: one kernel, no memset
-    a call; the scan tail: two kernels (the compaction, the sentinel
-    fill)."""
+    """compact_mask with 1-3 columns, the filter and the scan tail (whose
+    last tile's block writes the sentinel): one kernel, no memset a
+    call."""
     x = _t(rng.integers(1, 10000, n, endpoint=True), cuda)
     mask = x < 5000
     for ncols in (1, 2, 3):
@@ -457,7 +572,7 @@ def test_compactions_are_one_kernel_and_no_memset(cuda, rng, n):
     nch = n // 128
     stat, base = chunk_stats(x[: nch * 128].view(-1, 128), 5)
     assert device_ops(scan_tail_cuda.scan_tail_streams, stat, base, 5,
-                      16384, 512) == (2, 0)
+                      16384, 512) == (1, 0)
 
 
 @pytest.mark.parametrize("n,threshold,deep", [(1 << 20, 5, 0), (1 << 20, 5, 40),
@@ -479,12 +594,33 @@ def test_filter_sparse_assume_sparse_reads_nothing_back(cuda, rng):
     x = _t(rng.integers(1, 10000, 1 << 20, endpoint=True), cuda)
     scan.filter_sparse(x, assume_sparse=True)  # build and warm up
     torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
     torch.cuda.set_sync_debug_mode("error")
     try:
         out, count = scan.filter_sparse(x, assume_sparse=True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert out.is_cuda and count.is_cuda
+    # phase A on its kernel: chunk_stats once, its cumsum, the tail
+    assert {k: _build.LAUNCHES[k] - before[k]
+            for k in ("chunk_stats", "cumsum", "scan_tail_streams",
+                      "chunk_stats_pallas")} == {
+        "chunk_stats": 1, "cumsum": 1, "scan_tail_streams": 1,
+        "chunk_stats_pallas": 0}
+
+
+@pytest.mark.parametrize("n,threshold", [(1 << 24, 5), (1 << 20, 5000)])
+def test_filter_sparse_default_path_runs_phase_a_on_its_kernel(cuda, rng, n,
+                                                               threshold):
+    """The default path takes the chunk-stats kernel once a call, where the
+    caps hold and where they trip, exact against filter_oracle."""
+    x = rng.integers(1, 10000, n, endpoint=True).astype(np.int32)
+    expected = scan.filter_oracle(x, threshold)
+    before = _build.LAUNCHES["chunk_stats"]
+    out, count = scan.filter_sparse(_t(x, cuda), threshold)
+    assert _build.LAUNCHES["chunk_stats"] == before + 1
+    assert int(count) == len(expected)
+    assert np.array_equal(out[: len(expected)].cpu().numpy(), expected)
 
 
 def test_wrappers_count_their_launches(cuda):
@@ -502,9 +638,10 @@ def test_wrappers_count_their_launches(cuda):
     bitonic_cuda.merge_bitonic((k8, k8))
     merge_fill_cuda.merge_fill(k, k, k, 4)
     reduce_cuda.reduce_sum(k)
+    x2 = torch.zeros(2, 128, dtype=torch.int32, device=cuda)
+    chunk_stats_cuda.chunk_stats(x2, 5)  # + cumsum
     # the JAX names: each counts itself and the kernel wrapper it goes
     # through
-    x2 = torch.zeros(2, 128, dtype=torch.int32, device=cuda)
     chunk_stats_cuda.chunk_stats_pallas(x2, 5)  # + cumsum
     chunk_stats_cuda.chunk_stats_roll_pallas(x2, 5)  # + cumsum
     chunk_stats_cuda.chunk_stats_fused(x2, 5)  # + cumsum
@@ -544,10 +681,10 @@ def test_wrappers_count_their_launches(cuda):
     lock_add_cuda.grid_accumulate_plain(3, device=cuda)
     mv.gb_diag_plain(k, k, "full", 8, 8, 32, 4096)
     assert {n: _build.LAUNCHES[n] - before[n] for n in before} == {
-        "histogram": 8, "cumsum": 4, "groupby_small": 7,
+        "histogram": 8, "cumsum": 5, "groupby_small": 7,
         "weighted_histogram": 6, "filter": 1, "compact_mask": 1,
         "emit_prefix": 1, "scan_tail_streams": 2, "merge_bitonic": 1,
-        "merge_fill": 1, "reduce_sum": 1,
+        "merge_fill": 1, "reduce_sum": 1, "chunk_stats": 1,
         "chunk_stats_pallas": 1, "chunk_stats_roll_pallas": 1,
         "chunk_stats_fused": 1, "scan_tail_compact": 1,
         "probe_dense_rel_pallas": 1, "probe_dense_cat_pallas": 1,
@@ -568,7 +705,7 @@ STATS_NAMES = ("chunk_stats_pallas", "chunk_stats_roll_pallas",
                "chunk_stats_fused")
 
 
-@pytest.mark.parametrize("name", STATS_NAMES)
+@pytest.mark.parametrize("name", ("chunk_stats",) + STATS_NAMES)
 @pytest.mark.parametrize("nch,thr", [(1, 5), (7, 5), (4097, 10000),
                                      (131072, 5), (3001, -(2**31) + 100),
                                      (3001, -(2**31)), (300, 2**31 - 1)])

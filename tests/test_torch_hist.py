@@ -83,6 +83,91 @@ def test_weighted_wraps_without_value_bound(rng):
                           groupby_oracle(k, v.view(np.uint32), hb * 128))
 
 
+@pytest.fixture(scope="module")
+def schedule_keys():
+    """20011 keys over [-50, 10300): out-of-range and negative keys, a hot
+    key in stretches, and the int32 extremes; the same with every key one
+    bin."""
+    rng = np.random.default_rng(31)
+    k = rng.integers(-50, 10300, 20_011).astype(np.int32)
+    k[rng.random(k.size) < 0.2] = 77  # a hot key
+    k[:3] = [-(2**31), 2**31 - 1, -1]
+    return k
+
+
+_SWAR = {}
+
+
+def _swar(k, hi_bins):
+    key = (k.tobytes(), hi_bins)
+    if key not in _SWAR:
+        _SWAR[key] = np.asarray(histogram_16k_swar_pallas(
+            jnp.asarray(k), hi_bins=hi_bins, interpret=True))
+    return _SWAR[key]
+
+
+@pytest.mark.parametrize("hi_bins", [8, 80, 128])
+@pytest.mark.parametrize("threads,blocks,mergers", [
+    (32, 1, 1), (32, 3, 2), (64, 8, 8), (32, 37, 16), (128, 64, 64),
+    (512, 64, 64)])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_histogram_schedule_matches_swar_pallas(schedule_keys, hi_bins,
+                                                threads, blocks, mergers,
+                                                offset):
+    """The kernel's schedule (keys split over blocks as its vector loop
+    splits them, a copy a block, 16-bit copies, the last blocks to start
+    merging a slice each) bit for bit against the Pallas kernel, at block
+    counts that leave blocks without keys and views off 16 bytes."""
+    k = schedule_keys[offset:]
+    out, merged, narrow, counters = hist_cuda._histogram_schedule(
+        torch.from_numpy(k), hi_bins, blocks, mergers, threads=threads,
+        offset=offset, seed=blocks + offset)
+    assert out.dtype == torch.int32
+    assert np.array_equal(out.numpy(), _swar(k, hi_bins))
+    assert counters == [0, 0, 0]  # left zero for the next call
+    assert len(merged) == (mergers if blocks > 1 else 0)
+    assert len(set(merged)) == len(merged)
+    assert narrow
+
+
+@pytest.mark.parametrize("case", [
+    np.full(20_000, 77, np.int32),                   # one hot bin
+    np.full(64, 1 << 14, np.int32),                  # all out of range
+    np.array([16383], np.int32),                     # n = 1
+    np.array([-5, -(2**31)], np.int32),              # negatives only
+])
+@pytest.mark.parametrize("hi_bins", [8, 128])
+def test_histogram_schedule_degenerate(case, hi_bins):
+    for threads, blocks, mergers in ((32, 1, 1), (32, 5, 4), (64, 16, 8)):
+        out, _, _, counters = hist_cuda._histogram_schedule(
+            torch.from_numpy(case), hi_bins, blocks, mergers,
+            threads=threads, seed=3)
+        assert np.array_equal(out.numpy(), _swar(case, hi_bins))
+        assert counters == [0, 0, 0]
+
+
+@pytest.mark.parametrize("hi_bins", [1, 8, 80, 128])
+@pytest.mark.parametrize("n", [0, 1, 4097, 100_003, 1 << 20, 1 << 22,
+                               1 << 24])
+def test_histogram_plan(hi_bins, n):
+    """The count histogram's plan: at least one block; the blocks' copies
+    hold no more bins than the keys (copies * nbins <= max(nbins, n), so
+    the merge moves no more than the keys); mergers that the blocks hold,
+    with slices of whole 16-byte words of 16-bit bins; and the main paths'
+    plans of the sweep (Radix hi80 at 2^22: 128 blocks; the JoinOmnisci
+    build hi128 at 2^20: 64)."""
+    nbins = hi_bins * 128
+    blocks, mergers = hist_cuda.histogram_plan(hi_bins, n)
+    assert 1 <= blocks <= hist_cuda.HIST_MAX_BLOCKS
+    assert blocks * nbins <= max(nbins, n)
+    assert 1 <= mergers <= min(blocks, hist_cuda.HIST_MERGERS)
+    assert nbins % (8 * mergers) == 0
+    if (hi_bins, n) == (80, 1 << 22):
+        assert (blocks, mergers) == (128, 64)
+    if (hi_bins, n) == (128, 1 << 20):
+        assert (blocks, mergers) == (64, 64)
+
+
 def test_plain_twins_do_not_count_launches(rng):
     before = dict(_build.LAUNCHES)
     hist_cuda.histogram(_t(rng.integers(0, 100, 50)), hi_bins=8)

@@ -18,7 +18,7 @@ import torch
 
 from dwarf_bench_tpu.cli import main as jax_main
 from dwarf_bench_tpu.ops import scan as jax_scan
-from dwarf_bench_tpu_torch.ops import scan
+from dwarf_bench_tpu_torch.ops import chunk_stats_cuda, scan
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -191,6 +191,63 @@ def test_stats_pallas_assume_sparse_reads_nothing_back(rng, monkeypatch):
         monkeypatch.setattr(torch.Tensor, name, host_read)
     for stats_pallas in (True, False):
         scan.filter_sparse(x, assume_sparse=True, stats_pallas=stats_pallas)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: it routes a wrapper as a
+    card's tensor would, with no card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _spy(monkeypatch, module, name, calls):
+    fn = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append(name)
+        return fn(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, spy)
+
+
+def test_phase_a_routing(rng, monkeypatch):
+    """filter_sparse's default path takes phase A from
+    chunk_stats_cuda.chunk_stats once a call, which launches the
+    chunk-stats kernel for a tensor on the card and runs its plain twin for
+    a CPU tensor; stats_pallas=False keeps the plain stats."""
+    calls = []
+    launched = []
+    plain = chunk_stats_cuda.chunk_stats_plain
+
+    def launch(op, x2, thr):
+        launched.append(op)
+        return plain(x2.as_subclass(torch.Tensor), thr)
+
+    monkeypatch.setattr(chunk_stats_cuda, "_launch", launch)
+    _spy(monkeypatch, chunk_stats_cuda, "chunk_stats_plain", calls)
+    _spy(monkeypatch, chunk_stats_cuda, "chunk_stats", calls)
+    x2 = torch.from_numpy(_data(rng, 64 * 128).reshape(64, 128))
+    exp = plain(x2, 5)
+    got = chunk_stats_cuda.chunk_stats(x2, 5)
+    assert calls == ["chunk_stats", "chunk_stats_plain"] and launched == []
+    calls.clear()
+    got_card = chunk_stats_cuda.chunk_stats(x2.as_subclass(_OnCard), 5)
+    assert calls == ["chunk_stats"] and launched == ["chunk_stats"]
+    for g in (got, got_card):
+        assert all(torch.equal(a, b) for a, b in zip(g, exp))
+
+    x = _data(rng, 1 << 16, 5)
+    calls.clear()
+    out, count = scan.filter_sparse(torch.from_numpy(x), assume_sparse=True)
+    assert calls == ["chunk_stats", "chunk_stats_plain"]
+    expected = scan.filter_oracle(x)
+    assert int(count) == len(expected)
+    assert np.array_equal(out.numpy()[: len(expected)], expected)
+    calls.clear()
+    scan.filter_sparse(torch.from_numpy(x), stats_pallas=False)
+    assert "chunk_stats" not in calls
 
 
 def _csv_rows(path):

@@ -80,6 +80,46 @@ def test_scan_tail_streams_matches_pallas(rng, nch, density):
     assert np.array_equal(got[3][:km], ref[3][:km])
 
 
+def _tail_rows(nch, singles, seed):
+    """(nch, 128) chunks of values in [5, 10000] (no match for x < 5) with
+    ``singles`` chunks holding one match in the window, and some chunks
+    with two matches (multis)."""
+    rng = np.random.default_rng(seed)
+    x2 = rng.integers(5, 10001, (nch, 128)).astype(np.int32)
+    rows = rng.permutation(nch)
+    x2[rows[:singles], rng.integers(0, 128, singles)] = 3
+    multi = rows[singles: singles + nch // 50]
+    x2[multi, :2] = -7
+    return x2
+
+
+@pytest.mark.parametrize("nch", [1, 2047, 2048, 2049, 5000])
+@pytest.mark.parametrize("cut", ["none", "equal", "below"])
+def test_lookback_tail_matches_pallas_past_n_single(nch, cut):
+    """The scan tail by the kernel's schedule (its tile of 2048 chunks, the
+    sentinel written by the last tile's block past n_single) against the
+    Pallas kernel in interpret mode, where n_single is 0, equals
+    cap_single and exceeds it."""
+    singles = 0 if cut == "none" else max(nch // 3, 1)
+    x2 = _tail_rows(nch, singles, seed=nch)
+    stat, base = chunk_stats_xla(jnp.asarray(x2), 5)
+    cap_single = {"none": 64, "equal": singles, "below": singles - 1}[cut]
+    cap_mc = 512
+    ref = [_np(r) for r in jax_tail(stat, base, 5, cap_single, cap_mc,
+                                    interpret=True)]
+    got = scan_tail_cuda._lookback_tail(_t(stat), _t(base), 5, cap_single,
+                                        cap_mc)
+    assert (int(got[4]), int(ref[4])) == (singles, singles)
+    assert int(got[5]) == int(ref[5])
+    assert np.array_equal(got[0].numpy(), ref[0])  # the sentinel past ns
+    ks, km = min(singles, cap_single), min(int(ref[5]), cap_mc)
+    assert np.array_equal(got[1].numpy()[:ks], ref[1][:ks])
+    assert np.array_equal(got[2].numpy()[:km], ref[2][:km])
+    assert np.array_equal(got[3].numpy()[:km], ref[3][:km])
+    # every slot past ns is written, by the last tile's block alone
+    assert (got[0].numpy()[ks:] == scan_tail_cuda.BIG).all()
+
+
 @pytest.mark.parametrize("ncols,sel,capacity", [
     (1, 0.01, None),
     (2, 0.3, 1000),  # count above capacity
