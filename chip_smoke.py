@@ -15,8 +15,14 @@ with nvcc, then:
      library call of the same function where there is one (CUDA events and
      profiler device time), and the bound (the least time the card could
      take: bytes over 3.35 TB/s or operations over 67 TOP/s, whichever is
-     larger; for the lock kernel, one assumed L2 round trip per serialized
-     acquisition); cumsum, histogram and weighted_histogram and their library
+     larger; for the lock kernel, one L2 round trip of an atomic per
+     serialized acquisition, measured on the card by a chain of dependent
+     atomics and printed with the card); the count histogram under plans
+     the card cannot hold at once (every block a merger), each in a
+     subprocess under a time limit: the cooperative launch must be refused
+     and the next call exact; emit_prefix with the scan's index (its
+     gather folded in) and without; cumsum, histogram and weighted_histogram
+     and their library
      calls are also timed with the L2 flushed before each call, and
      merge_bitonic, merge_fill, reduce_sum, vadd and histogram as replays
      of a captured CUDA graph;
@@ -34,7 +40,9 @@ with nvcc, then:
      CUDA graph, must be one a pass of the plan for merge_bitonic at 2^25
      (3), one kernel and no memset for merge_fill in each mode, reduce_sum,
      vadd (aligned or not), compact_mask (1-3 columns), filter,
-     scan_tail_streams and the histogram (hi80 2^22, hi128 2^20), and two
+     scan_tail_streams, the histogram (hi80 2^22, hi128 2^20) and
+     grid_accumulate (64 and 2^16 blocks, with the time an acquisition),
+     and two
      kernels and no memset for the scan's phase A (chunk_stats, cumsum);
      the three compactions run back to back on one stream and three times
      on each of two streams;
@@ -182,12 +190,6 @@ GROUPBY_NAMES = ("groupby_small_swar_pallas", "groupby_small_pallas_f32")
 # peak; these kernels do 32-bit integer work), whichever takes longer.
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-# One L2 round trip of an atomic, the least a lock acquisition that another
-# block must see can take: about 200 SM cycles at the H100's 1.98 GHz boost
-# clock. An assumed latency (published microbenchmarks of Hopper's L2 give
-# 200-270 cycles for a hit), not a rate of the card's data sheet and not
-# measured here.
-L2_ROUND_TRIP_S = 1.0e-7
 
 SCAN_KERNELS = ("chunk_stats", "cumsum", "scan_tail_streams",
                 "compact_mask", "emit_prefix")
@@ -440,6 +442,7 @@ def phase_kernels(dev):
     run("histogram", "n=1", h, hp, t([16383]), 128)
     run("histogram", "n=1000003 spread", h, hp,
         t(rng.integers(-100, 16384 + 100, 1_000_003)), 128)
+    histogram_oversized_plans()
 
     # -- cumsum (radix run expansion at 2^22) ---------------------------
     c, cp = cumsum_cuda.cumsum, cumsum_cuda.cumsum_plain
@@ -690,10 +693,30 @@ def phase_kernels(dev):
         out = torch.empty(capacity, dtype=torch.int32, device=dev)
         return out[: v.numel()].copy_(v)
 
-    run("emit_prefix", "L=20480 into 2^24", e, ep,
-        t(rng.integers(i32min, i32max, 20480)), scan_n, view=prefix(20480),
-        timed=True, cost=lambda res: (8 * 20480, 20480),
-        library=copy_prefix)
+    def gather_prefix(v, capacity, index):
+        out = torch.empty(capacity, dtype=torch.int32, device=dev)
+        torch.index_select(v, 0, index, out=out[: index.numel()])
+        return out
+
+    def gathered(v, capacity, index):
+        return ep(v[index], capacity)
+
+    # the scan's emit: its 20480 values (cap_single + cap_melems) gathered
+    # by the sort's order; an int64 and two int32 moved a value
+    emit_vals = t(rng.integers(i32min, i32max, 20480))
+    emit_order = torch.from_numpy(rng.permutation(20480)).to(dev)
+    run("emit_prefix", "L=20480 into 2^24 with the scan's index", e,
+        gathered, emit_vals, scan_n, emit_order, view=prefix(20480),
+        timed=True, cost=lambda res: (16 * 20480, 20480),
+        library=gather_prefix, cold=True, graph=True)
+    run("emit_prefix", "L=20480 into 2^24", e, ep, emit_vals, scan_n,
+        view=prefix(20480), timed=True, cost=lambda res: (8 * 20480, 20480),
+        library=copy_prefix, cold=True, graph=True)
+    run("emit_prefix", "index into a longer view off 4 bytes", e, gathered,
+        emit_vals[1:], 1000, torch.from_numpy(
+            rng.integers(0, 20479, 999)).to(dev)[1:], view=prefix(998))
+    run("emit_prefix", "L=1025, view off 8 bytes", e, ep, emit_vals[2:1027],
+        1025, view=prefix(1025))
     run("emit_prefix", "L = capacity", e, ep, t(np.arange(128)), 128,
         view=prefix(128))
     run("emit_prefix", "L=37, capacity 40", e, ep,
@@ -1049,20 +1072,35 @@ def phase_kernels(dev):
     def acc_plain(n_steps, anchor):
         return lock_add_cuda.grid_accumulate_plain(n_steps, anchor.device)
 
+    # one L2 round trip of an atomic, measured on this card: the least a
+    # lock handoff between two blocks can take
+    trips = [lock_add_cuda.l2_round_trip(dev) for _ in range(5)]
+    rtt = sorted(trips)[2]
+    print(f"L2 round trip of an atomic on {card_line()}: {rtt * 1e9!r} ns "
+          f"(median of five chains of 2^14 dependent atomicAdds: "
+          f"{[t * 1e9 for t in trips]!r} ns)", flush=True)
+
     def lock_cost(n_steps):
-        """The counter and the lock written; n_steps acquisitions, each at
-        least one L2 round trip after the last, none overlapping."""
-        return lambda res: (8, 2 * n_steps, n_steps * L2_ROUND_TRIP_S)
+        """The counter written; n_steps acquisitions, each at least one
+        measured L2 round trip after the last, none overlapping."""
+        return lambda res: (4, 2 * n_steps, n_steps * rtt)
 
     anchor = torch.zeros(1, device=dev)
     run("grid_accumulate", "n_steps=64", acc, acc_plain, 64, anchor,
-        timed=True, cost=lock_cost(64))
-    run("grid_accumulate", "n_steps=1", acc, acc_plain, 1, anchor)
+        timed=True, cost=lock_cost(64), graph=True)
+    for n_steps in (1, 2):
+        run("grid_accumulate", f"n_steps={n_steps}", acc, acc_plain, n_steps,
+            anchor)
     run("grid_accumulate", "n_steps=2^16", acc, acc_plain, 1 << 16, anchor,
         timed=True, cost=lock_cost(1 << 16))
-    per = kernel_time(acc, 1 << 16, anchor, k=5)
-    print(f"grid_accumulate 2^16: {per / (1 << 16) * 1e6!r} us per lock "
-          f"acquisition (events)", flush=True)
+    for n_steps in (64, 1 << 16):
+        per = kernel_time(acc, n_steps, anchor, k=5)
+        ops = device_ops(acc, n_steps, anchor)
+        print(f"grid_accumulate {n_steps}: {per / n_steps * 1e6!r} us per "
+              f"lock acquisition (events; bound {rtt * 1e6!r} us), kernels "
+              f"per call {ops[0]!r}, memsets {ops[1]!r}", flush=True)
+        check(ops == (1, 0), f"grid_accumulate {n_steps}: {ops} kernels and "
+                             "memsets a call, expected 1 and 0")
 
     # -- the measurement scripts' names at their mains' shapes (2^22 keys
     #    in [1, 10000]; G = 2^16 weighted at 2^20; 256 probe indices) and a
@@ -1128,6 +1166,35 @@ def phase_kernels(dev):
             fn, plain, t(rng.integers(-5, 64 + 5, odd)),
             t(rng.integers(i32min, i32max, odd, endpoint=True)))
     return stats
+
+
+def histogram_oversized_plans():
+    """The count histogram under plans the card cannot hold at once (every
+    block a merger: 1024 at 8192 bins, 2048 at 2^14), each in a subprocess
+    under a time limit, so that a hang fails here instead of holding the
+    card: the cooperative launch must be refused and the next call on the
+    stream exact."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    for hi_bins, blocks in ((64, 1024), (128, 2048)):
+        label = (f"histogram [{blocks} blocks, all mergers, "
+                 f"{hi_bins * 128} bins]")
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "dwarf_bench_tpu_torch.utils.hist_plan",
+                 str(hi_bins), str(blocks)], capture_output=True, text=True,
+                timeout=180, cwd=root)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"{label}: did not end within 180 s")
+        out = proc.stdout
+        check(proc.returncode == 0, f"{label}: exit {proc.returncode}: "
+                                    f"{proc.stderr[-2000:]}")
+        check("refused:" in out and "cooperative launch" in out,
+              f"{label}: not refused by the cooperative launch: {out!r}")
+        check("next call exact: True" in out,
+              f"{label}: the next call differs from the twin: {out!r}")
+        refusal = out.split("refused:", 1)[1].splitlines()[0].strip()
+        print(f"kernel {label}: the cooperative launch held (refused: "
+              f"{refusal}); the next call exact", flush=True)
 
 
 def compaction_checks(dev, rng, t, scan_x, stat, base):
@@ -1433,6 +1500,7 @@ def stats_pallas_paths(dev):
     assume_sparse=True under CUDA's sync debug mode "error"."""
     from dwarf_bench_tpu_torch.common.datagen import make_random
     from dwarf_bench_tpu_torch.ops import _build, scan
+    from dwarf_bench_tpu_torch.utils.kernel_times import device_ops
     from dwarf_bench_tpu_torch.utils.timing import kernel_time
 
     for n, thr, seed, label in ((1 << 24, 5, 7, "2^24 x<5"),
@@ -1486,6 +1554,10 @@ def stats_pallas_paths(dev):
         "filter_oracle")
     print("filter_sparse 2^24 x<5 stats_pallas=True assume_sparse: valid, "
           "no host read", flush=True)
+    ops = device_ops(lambda v: scan.filter_sparse(v, assume_sparse=True), xd)
+    print(f"filter_sparse 2^24 x<5 assume_sparse: kernels per call "
+          f"{ops[0]!r}, memsets {ops[1]!r} (graph nodes; the emit gathers "
+          f"by the sort's order)", flush=True)
 
 
 def csr_join_path(dev):

@@ -61,6 +61,18 @@ cudaError_t configure(Kernel kernel, bool cluster,
   return err;
 }
 
+// The result of a cudaLaunchKernelEx: a refused launch (a cooperative grid
+// the context cannot hold, a cluster too large) also sets the runtime's
+// last error, which is cleared here, or the next entry point's
+// cudaGetLastError() would report it for a launch that ran.
+inline cudaError_t launched(cudaError_t err) {
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  return cudaGetLastError();
+}
+
 // Grid for a grid-stride loop over n elements: enough blocks to cover n,
 // at most `per_sm` blocks on each SM, at least one block.
 inline int grid_for(int64_t n, int threads, int per_sm) {

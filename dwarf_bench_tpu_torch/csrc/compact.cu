@@ -13,8 +13,14 @@
 //
 // dbt_emit_prefix replaces compact_pallas.py:225 emit_prefix_pallas: the
 // first `len` values into slots [0, len) of an uninitialised buffer, the rest
-// left as it is (garbage past the caller's count, by contract). A plain
-// vector copy; on the scan's path it moves 80 KB.
+// left as it is (garbage past the caller's count, by contract). The TPU
+// kernel is one DMA of the values its pair sort already ordered; the card's
+// sort orders positions only, so the kernel takes an optional int64 index
+// and writes out[i] = vals[index[i]], the scan's gather and its emit in one
+// launch (ops/scan.py). On the scan's path it writes 80 KB, a launch's worth
+// of work, so it stays a grid-stride loop of 4-byte copies: measured on an
+// H100 (PERF.md), neither 16-byte vectors nor Hopper's bulk-copy engine
+// (cp.async.bulk through shared memory) beat it by graph or cold time.
 #include "compact.cuh"
 
 namespace {
@@ -75,12 +81,16 @@ struct MaskOp {
   __device__ void last_tile(const uint32_t (&)[1]) const {}
 };
 
-__global__ void copy_prefix(const int32_t* __restrict__ v, int64_t len,
+// out[i] = vals[i], or with an index vals[index[i]], for i < len: one
+// value a thread and step of a grid-stride loop over 256-lane blocks.
+template <bool kIndexed>
+__global__ void copy_prefix(const int32_t* __restrict__ vals,
+                            const int64_t* __restrict__ index, int64_t len,
                             int32_t* __restrict__ out) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < len;
        i += stride) {
-    out[i] = v[i];
+    out[i] = vals[kIndexed ? index[i] : i];
   }
 }
 
@@ -108,11 +118,19 @@ extern "C" int dbt_compact_mask(const uint8_t* mask, const int32_t* c0,
       op, n, vec, count, scratch, static_cast<cudaStream_t>(stream)));
 }
 
-extern "C" int dbt_emit_prefix(const int32_t* vals, int64_t len, int32_t* out,
-                               void* stream) {
+// out[i] = vals[i] for i < len or, with an index (len int64, each a valid
+// position of vals), out[i] = vals[index[i]]; out's other slots are left as
+// they are. One launch; none for len 0.
+extern "C" int dbt_emit_prefix(const int32_t* vals, const int64_t* index,
+                               int64_t len, int32_t* out, void* stream) {
   if (len > 0) {
-    copy_prefix<<<dbt::grid_for(len, 256, 8), 256, 0,
-                  static_cast<cudaStream_t>(stream)>>>(vals, len, out);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int grid = dbt::grid_for(len, 256, 8);
+    if (index != nullptr) {
+      copy_prefix<true><<<grid, 256, 0, s>>>(vals, index, len, out);
+    } else {
+      copy_prefix<false><<<grid, 256, 0, s>>>(vals, index, len, out);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,15 +16,19 @@
 //   - each block stores its copy into a (blocks, nbins) scratch, 16-bit
 //     bins where every block counts fewer than 2^16 keys (the main paths),
 //     and counts itself done with a release add it does not wait for;
-//   - the last `mergers` blocks to start, for which every other block has
-//     started, wait for every block to be done; each adds one slice of the
-//     bins over the copies from the L2, eight 16-byte loads in flight a
-//     lane, and stores it into the output. The last merger out puts the
-//     counters back to 0, so the scratch, one lasting buffer a stream,
-//     needs no memset. A waiting merger holds its SM slot, so the mergers
-//     must be fewer than the blocks the card holds at once: dbt_histogram
-//     refuses a plan with more, and the wrapper's (ops/hist_cuda.py
-//     HIST_MERGERS) takes fewer than the card's SMs.
+//   - the last `mergers` blocks to start wait for every block to be done;
+//     each adds one slice of the bins over the copies from the L2, eight
+//     16-byte loads in flight a lane, and stores it into the output. The
+//     last merger out puts the counters back to 0, so the scratch, one
+//     lasting buffer a stream, needs no memset.
+// A merger waits on blocks that may not have started, so with more than
+// one block the grid is a cooperative launch: the CUDA driver starts it
+// only if the context (an MPS client or a green context holds fewer SMs
+// than the card) holds every block at once, and otherwise refuses it with
+// cudaErrorCooperativeLaunchTooLarge, which the wrapper raises. So no plan
+// can hang. (A merge that never waits, mergers that count no keys and wait
+// only on the counting blocks, which started before them, took 0.0122 ms
+// device at Radix's hi80 2^22 against 0.0093 on an H100: PERF.md.)
 // Bound on the card: the key read (4 bytes a row) and the bins written. The
 // plan (ops/hist_cuda.py histogram_plan) keeps blocks * nbins at or below
 // max(nbins, n), so the copies, which mostly stay in the L2, never move
@@ -165,7 +169,9 @@ __device__ __forceinline__ void add_word(uint32_t (&sum)[8], uint4 v) {
 // 16-bit bins with kNarrow: every block counts fewer than 2^16 keys) and
 // counters three words, zero, left zero: the blocks' start tickets, the
 // blocks that have stored their copy, the mergers done. `mergers` is at
-// most the blocks, and nbins / mergers a multiple of 8.
+// most the blocks, and nbins / mergers a multiple of 8. With more than one
+// block, every block of the grid must be resident at once (a cooperative
+// launch).
 template <int kThreads, bool kNarrow>
 __global__ void __launch_bounds__(kThreads)
     histogram_kernel(const int32_t* __restrict__ keys, int64_t n,
@@ -237,9 +243,9 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // The last `mergers` blocks to start, for which every other block has
-  // started, wait for every block to be done; each adds its slice of the
-  // bins over the copies and stores it.
+  // The last `mergers` blocks to start wait for every block to be done (the
+  // cooperative launch holds every block resident); each adds its slice of
+  // the bins over the copies and stores it.
   const uint32_t first_merger = gridDim.x - mergers;
   if (s_start < first_merger) return;
   const uint32_t slice = nbins / mergers;
@@ -408,31 +414,33 @@ cudaError_t launch_histogram(const int32_t* keys, int64_t n, int64_t head,
   auto kernel = histogram_kernel<kHistThreads, kNarrow>;
   cudaError_t err = dbt::configure(kernel, false, ready);
   if (err != cudaSuccess) return err;
-  const int smem = static_cast<int>(nbins * sizeof(uint32_t));
-  // A merger waits for every block: refuse more mergers than the card holds
-  // at once. Every SM holds at least one block, so the exact count is asked
-  // for only when the mergers reach the SMs.
-  if (blocks > 1 && mergers >= dbt::num_sms()) {
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kHistThreads, smem);
-    if (err != cudaSuccess) return err;
-    if (mergers >= dbt::num_sms() * per_sm) return cudaErrorInvalidValue;
-  }
-  kernel<<<blocks, kHistThreads, smem, s>>>(
-      keys, n, head, nvec, nbins, out,
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kHistThreads);
+  cfg.dynamicSmemBytes = nbins * sizeof(uint32_t);
+  cfg.stream = s;
+  // the mergers wait for every block: every block resident at once, or no
+  // launch (one block waits on none)
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = blocks > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, keys, n, head, nvec, nbins, out,
       reinterpret_cast<uint32_t*>(scratch + kCounterWords),
       reinterpret_cast<unsigned*>(scratch), mergers);
-  return cudaGetLastError();
+  return dbt::launched(err);
 }
 
 }  // namespace
 
 // Writes every bin of out (nbins, a multiple of 128 up to 2^14: its int32
 // fit one block's shared memory). `blocks` blocks each count a share of the
-// keys into a copy; `mergers` blocks, at most `blocks`, fewer than the
-// blocks the device holds at once, and with nbins a multiple of
-// 8 * mergers, merge the copies. With more than one block, scratch holds
+// keys into a copy; `mergers` blocks, at most `blocks`, with nbins a
+// multiple of 8 * mergers, merge the copies. With more than one block the
+// launch is cooperative, so a grid the context cannot hold at once returns
+// cudaErrorCooperativeLaunchTooLarge and runs nothing; scratch holds
 // dbt_histogram_scratch(nbins, blocks) int32 whose first 4 (the counters)
 // are zero, and leaves them zero. keys needs only int32 alignment.
 extern "C" int dbt_histogram(const int32_t* keys, int64_t n, int32_t* out,
@@ -495,9 +503,9 @@ extern "C" int dbt_weighted_histogram(const int32_t* keys, const int32_t* vals,
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg =
         cluster_config(copies * cluster, cluster, smem, s, &attr);
-    err = cudaLaunchKernelEx(&cfg, weighted_histogram_kernel<true>, keys, vals,
-                             n, static_cast<uint32_t>(nbins), per_block, dst,
-                             vec);
+    err = dbt::launched(cudaLaunchKernelEx(
+        &cfg, weighted_histogram_kernel<true>, keys, vals, n,
+        static_cast<uint32_t>(nbins), per_block, dst, vec));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (copies > 1) {

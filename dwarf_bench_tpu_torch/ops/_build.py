@@ -65,7 +65,7 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _I32, _I64, _P, _P, _P, _I64, _P, _P, _P],
         ctypes.c_int,
     ),
-    "dbt_emit_prefix": ([_P, _I64, _P, _P], ctypes.c_int),
+    "dbt_emit_prefix": ([_P, _P, _I64, _P, _P], ctypes.c_int),
     "dbt_scan_tail_streams": (
         [_P, _P, _I64, _I32, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
         ctypes.c_int,
@@ -82,6 +82,7 @@ _SIGNATURES = {
     "dbt_probe_dense": ([_P, _P, _P, _I64, _I32, _P, _P, _P], ctypes.c_int),
     "dbt_vadd": ([_P, _P, _P, _I64, _I32, _P], ctypes.c_int),
     "dbt_lock_add": ([_P, _P, _I32, _P], ctypes.c_int),
+    "dbt_l2_round_trip": ([_P, _I32, _P, _P], ctypes.c_int),
     "dbt_gb_diag": (
         [_P, _P, _I64, _P, _I32, _I32, _I32, _I64, _I32, _P],
         ctypes.c_int,
@@ -271,7 +272,8 @@ def stream_scratch(kind: str, device: torch.device, words: int) -> torch.Tensor:
     used the buffer; each stream has its own. It saves a torch.empty, and
     its host time, a call; a kernel that needs it zero must leave it zero
     (``dbt_cumsum`` and the compactions do, ``dbt_reduce_sum`` its
-    ticket and ``dbt_histogram`` its counters)."""
+    ticket, ``dbt_histogram`` its counters and ``dbt_lock_add`` its
+    lock)."""
     index = device.index
     key = (kind, index, torch._C._cuda_getCurrentRawStream(index))
     buf = _STREAM_SCRATCH.get(key)

@@ -10,7 +10,10 @@ is a bool tensor.
 
 ``emit_prefix`` is the contract of ``emit_prefix_pallas``: ``vals``
 (L <= capacity) in slots [0, L) of a (capacity,) int32 buffer whose other
-slots are left uninitialised (garbage past the caller's count).
+slots are left uninitialised (garbage past the caller's count). With an
+int64 ``index`` it emits ``vals[index]`` (L = the index's length) in the
+same one launch: the sparse scan's gather and emit together, where the
+JAX package sorts (position, value) pairs and emits the sorted values.
 
 A wrapper takes the twin only for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises. ``compact_mask`` is one launch a call, with
@@ -266,10 +269,21 @@ def _lookback_compact_mask(mask: torch.Tensor, cols, capacity=None,
     return outs, count, reads
 
 
-def _check_emit(vals: torch.Tensor, capacity: int):
+def _check_emit(vals: torch.Tensor, capacity: int,
+                index: Optional[torch.Tensor] = None):
     device = _build.check_vectors("emit_prefix", vals)
-    if vals.numel() > capacity:
-        raise ValueError(f"emit_prefix: {vals.numel()} values exceed "
+    length = vals.numel()
+    if index is not None:
+        if not isinstance(index, torch.Tensor) or index.dim() != 1 \
+                or index.dtype != torch.int64 or not index.is_contiguous():
+            raise ValueError("emit_prefix: the index must be a contiguous "
+                             "1-D int64 tensor")
+        if index.device != device:
+            raise ValueError(f"emit_prefix: values on {device}, index on "
+                             f"{index.device}")
+        length = index.numel()
+    if length > capacity:
+        raise ValueError(f"emit_prefix: {length} values exceed "
                          f"capacity {capacity}")
     return device
 
@@ -281,12 +295,20 @@ def emit_prefix_plain(vals: torch.Tensor, capacity: int) -> torch.Tensor:
     return out
 
 
-def emit_prefix(vals: torch.Tensor, capacity: int) -> torch.Tensor:
-    device = _check_emit(vals, capacity)
+def emit_prefix(vals: torch.Tensor, capacity: int,
+                index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``vals``, or ``vals[index]`` (every index a valid position of
+    ``vals``: the kernel does not check), in the first slots of a
+    (capacity,) buffer; its twin is ``emit_prefix_plain`` of the same
+    values."""
+    device = _check_emit(vals, capacity, index)
     if device.type == "cpu":
-        return emit_prefix_plain(vals, capacity)
+        return emit_prefix_plain(vals if index is None else vals[index],
+                                 capacity)
     out = torch.empty(capacity, dtype=torch.int32, device=device)
-    _build.launch("dbt_emit_prefix", device, vals.data_ptr(), vals.numel(),
+    length = vals.numel() if index is None else index.numel()
+    _build.launch("dbt_emit_prefix", device, vals.data_ptr(),
+                  None if index is None else index.data_ptr(), length,
                   out.data_ptr())
     _build.LAUNCHES["emit_prefix"] += 1
     return out

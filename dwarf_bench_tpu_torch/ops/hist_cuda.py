@@ -7,9 +7,11 @@ PyTorch twins.
 above hi_bins·128 (negatives, EMPTY, padding) counts nowhere. Its kernel
 keeps a copy of the bins in each block's shared memory and merges the
 copies through a lasting scratch a stream, the last blocks to start adding
-a slice of the bins each, in one launch that writes every bin (no memset);
-``histogram_plan`` chooses the blocks and the mergers, and
-``_histogram_schedule`` renders the schedule in plain PyTorch for the
+a slice of the bins each, in one cooperative launch that writes every bin
+(no memset): the CUDA driver refuses a grid the context cannot hold at once
+(``RuntimeError``, "too many blocks in cooperative launch"), so the waiting
+mergers never hang. ``histogram_plan`` chooses the blocks and the mergers,
+and ``_histogram_schedule`` renders the schedule in plain PyTorch for the
 tests.
 
 ``weighted_histogram`` is the contract of ``weighted_histogram_i8_swar_pallas``
@@ -33,7 +35,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,9 +52,8 @@ MAX_WEIGHTED_HI_BINS = 512  # 2^16 bins, the G = 2^16 group-by
 # least HIST_BLOCK_ROWS keys into its own copy of the bins, at most
 # HIST_MAX_BLOCKS and as many as ``copy_bins_limit`` allows; and up to
 # HIST_MERGERS of them merging the copies. A merger waits for every block,
-# so HIST_MERGERS stays below the SMs of the card: the waiting blocks never
-# take all the room a block yet to start needs (the kernel refuses a plan
-# whose mergers the card cannot hold at once).
+# so the launch is cooperative: a plan runs only where every block is
+# resident at once (HIST_MAX_BLOCKS against the H100's 132 SMs).
 HIST_THREADS = 512
 HIST_BLOCK_ROWS = 8192
 HIST_MAX_BLOCKS = 128
@@ -160,23 +161,30 @@ def launch_histogram(k: torch.Tensor, nbins: int, blocks: int,
 
 def _histogram_schedule(k: torch.Tensor, hi_bins: int, blocks: int,
                         mergers: int, threads: int = HIST_THREADS,
-                        offset: int = 0, seed: int = 0):
+                        offset: int = 0, seed: int = 0,
+                        resident: Optional[int] = None):
     """``histogram`` by the kernel's schedule, for the tests: the keys as
     the kernel splits them (a view ``offset`` int32 past a 16-byte boundary:
     the head before the next boundary, then 16-byte vectors, vector i to
     block (i mod blocks·threads) // threads, and the ragged tail, head and
     tail to block 0) into a copy a block, stored as 16-bit bins when every
-    block counts fewer than 2^16 keys. With more than one block the blocks
-    start in an order drawn from ``seed``; once every block is done, the
-    last ``mergers`` to start each add one slice of nbins / mergers bins
-    over the copies, and the last of them out puts the counters back.
-    ``threads`` other than the kernel's shrinks the schedule for small
-    inputs. Returns (out, the blocks that merged in the order of their
-    slices, whether the copies were 16-bit, the counters after the
+    block counts fewer than 2^16 keys. With more than one block the launch
+    is cooperative: where the context holds ``resident`` blocks at once
+    (None: any number) and the plan has more, it raises as the CUDA driver
+    refuses the launch, before anything runs. Else every block is resident,
+    and they start in an order drawn from ``seed``; once every block is
+    done, the last ``mergers`` to start each add one slice of
+    nbins / mergers bins over the copies, and the last of them out puts the
+    counters back. ``threads`` other than the kernel's shrinks the schedule
+    for small inputs. Returns (out, the blocks that merged in the order of
+    their slices, whether the copies were 16-bit, the counters after the
     call)."""
     nbins = hi_bins * 128
     n = k.numel()
     assert 1 <= mergers <= blocks and nbins % (8 * mergers) == 0
+    if blocks > 1 and resident is not None and blocks > resident:
+        raise RuntimeError(f"dbt_histogram: {blocks} blocks, {resident} "
+                           "resident: too many blocks in cooperative launch")
     ku = as_u32(k.cpu())
     head = min((4 - offset % 4) % 4, n)
     nvec = (n - head) // 4

@@ -147,7 +147,8 @@ def filter_sparse(
         <= ``cap_melems`` (position, value) pairs.
       ordering: one small sort of singles and multi elements by position
         (unique; the sentinel ``_BIG`` sorts past ``count``), and the sorted
-        values go to the front of the output (kernel ``emit_prefix``).
+        values go to the front of the output (kernel ``emit_prefix``, which
+        gathers them by the sort's order in the same launch).
 
     When a cap trips, the general compaction (kernel ``filter``) runs
     instead, so every selectivity gives the right answer. This structure
@@ -244,10 +245,10 @@ def filter_sparse(
     all_pos = torch.cat([spos, mpos])
     all_val = torch.cat([sval, mval])
     # valid positions are unique and the sentinel rows are garbage, so an
-    # unstable sort is exact
+    # unstable sort is exact; the emit gathers the values in sorted order
     order = torch.sort(all_pos).indices
     k = min(capacity, all_val.shape[0])
-    out = compact_cuda.emit_prefix(all_val[order[:k]], capacity)
+    out = compact_cuda.emit_prefix(all_val, capacity, order[:k])
     return out, total
 
 

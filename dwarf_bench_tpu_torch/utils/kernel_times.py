@@ -1,6 +1,7 @@
 """Times of the cumsum, histogram, weighted-histogram, bitonic-merge, sum,
-merge-fill, vadd, compaction and sparse-scan kernels, their library calls,
-and the host cost of a kernel launch, on one CUDA card.
+merge-fill, vadd, compaction, sparse-scan, prefix-emit and lock kernels,
+their library calls, and the host cost of a kernel launch, on one CUDA
+card.
 
     python dwarf_bench_tpu_torch/utils/kernel_times.py [--root DIR] [--sweep]
         [--host] [--label NAME] [--only GROUP,...]
@@ -28,8 +29,15 @@ rows, x < 5) and 2^13 (2^20 rows, x < 5000) under its two names, phase A of
 ``scan.filter_sparse``'s default path (``chunk_stats_cuda.chunk_stats``
 where the checkout has it, else the eager ``chunk_stats``) and
 ``chunk_stats_pallas`` at both and ``filter_sparse`` itself at 2^24 x < 5
-and 2^20 x < 5000; each with the kernels and memsets a call puts on the
-card (``device_ops``). ``--only`` runs the named groups.
+and 2^20 x < 5000; (group ``emit``) ``compact_cuda.emit_prefix`` of the
+sparse scan's 20480 values into 2^24 slots, plain and, where the checkout
+takes one, with the sort's int64 index, against ``out[:L].copy_`` and
+against the gather before the emit, and ``filter_sparse`` at 2^24 x < 5;
+(group ``lock``) the card's L2 round trip of an atomic (global timer and
+CUDA events) and ``grid_accumulate`` at 64, 2^12 and 2^16 blocks with the
+time an acquisition; each with the kernels and memsets a call puts on the
+card (``device_ops``). ``--only`` runs the named groups (none: ``--only
+""``).
 ``--sweep`` times the weighted histogram under every (cluster, copies) plan
 and the count histogram under every (blocks, mergers) plan at the
 main-path shapes and ``--host`` breaks one launch's host time down over
@@ -550,6 +558,104 @@ def scan_lines(root_label: str, dev, emit) -> None:
         del xd, x2, stat, base
 
 
+def _takes_index(emit_prefix) -> bool:
+    """Whether a checkout's emit_prefix gathers by an index."""
+    import inspect
+
+    return "index" in inspect.signature(emit_prefix).parameters
+
+
+def emit_lines(root_label: str, dev, emit) -> None:
+    """The prefix emit at the sparse scan's shape (20480 values into a
+    2^24 buffer): a plain copy against ``out[:L].copy_``; the scan's
+    gather by the sort's order folded into the emit, where the checkout's
+    emit takes an index, against the gather before the emit; and
+    ``filter_sparse`` at 2^24 x < 5 with the kernels and memsets a call."""
+    from dwarf_bench_tpu_torch.ops import compact_cuda, scan
+
+    rng = np.random.default_rng(11)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    length, capacity = 20480, 1 << 24
+    vals = t(rng.integers(-(2**31), 2**31, length))
+    order = torch.from_numpy(rng.permutation(length)).to(dev)
+    ep = compact_cuda.emit_prefix
+
+    def copy_prefix(v, cap):
+        out = torch.empty(cap, dtype=torch.int32, device=dev)
+        out[: v.numel()].copy_(v)
+        return out
+
+    _case(root_label, emit, "emit_prefix L=20480 into 2^24", ep,
+          (vals, capacity), 8 * length)
+    _case(root_label, emit, "out[:L].copy_ L=20480 into 2^24", copy_prefix,
+          (vals, capacity))
+    # an int64 index and the values read, the values written
+    nbytes = 16 * length
+    if _takes_index(ep):
+        _case(root_label, emit, "emit_prefix with the index, L=20480", ep,
+              (vals, capacity, order), nbytes)
+    _case(root_label, emit, "vals[index] then emit_prefix, L=20480",
+          lambda v, cap, i: ep(v[i], cap), (vals, capacity, order), nbytes)
+    x = t(rng.integers(1, 10000, 1 << 24, endpoint=True))
+    _case(root_label, emit, "filter_sparse 2^24 x<5",
+          lambda v: scan.filter_sparse(v, assume_sparse=True), (x,))
+
+
+LOCK_STEPS = (64, 1 << 12, 1 << 16)
+
+
+def lock_lines(root_label: str, dev, emit) -> None:
+    """The L2 round trip of an atomic, where the checkout measures it (five
+    chains of 2^14), and grid_accumulate at the example's 64 blocks, 2^12
+    and 2^16: events, and for 64 blocks profiler, cold and graph times,
+    with the kernels and memsets a call, whether the count is exact, and
+    the microseconds an acquisition. A variant that drops the lock is
+    timed all the same, with ``exact`` false."""
+    from dwarf_bench_tpu_torch.ops import lock_add_cuda
+
+    rtt = None
+    if hasattr(lock_add_cuda, "l2_round_trip"):
+        from dwarf_bench_tpu_torch.ops import _build
+
+        trips = [lock_add_cuda.l2_round_trip(dev) for _ in range(5)]
+        rtt = statistics.median(trips)
+        # the same chains timed by CUDA events instead of the global timer:
+        # the difference of 2^14 and 2^10 atomics over 2^14 - 2^10
+        word = torch.zeros(1, dtype=torch.int32, device=dev)
+        out = torch.empty(2, dtype=torch.int64, device=dev)
+
+        def chain(length, _):
+            _build.launch("dbt_l2_round_trip", dev, word.data_ptr(), length,
+                          out.data_ptr())
+
+        long_ms, short_ms = (events_ms(chain, c, word, k=20)
+                             for c in (1 << 14, 1 << 10))
+        per_add_s = (long_ms - short_ms) * 1e-3 / ((1 << 14) - (1 << 10))
+        emit({"root": root_label, "case": "l2_round_trip chain 2^14",
+              "seconds": trips, "median_s": rtt, "events_s": per_add_s})
+    anchor = torch.zeros(1, device=dev)
+
+    def acc(n_steps, _):
+        return lock_add_cuda.grid_accumulate(n_steps, dev)
+
+    for n_steps in LOCK_STEPS:
+        exact = int(acc(n_steps, anchor)[0, 0]) == n_steps
+        line = {"root": root_label, "case": f"grid_accumulate {n_steps}",
+                "exact": exact}
+        if n_steps == 64:
+            line.update(times(acc, n_steps, anchor, graph=True))
+        else:  # a second or more a call before the ticket lock
+            line["events_ms"] = events_ms(acc, n_steps, anchor, k=3)
+        line["kernels"], line["memsets"] = device_ops(acc, n_steps, anchor)
+        line["us_per_acquisition"] = line["events_ms"] * 1e3 / n_steps
+        if rtt is not None:
+            line["bound_ms"] = n_steps * rtt * 1e3
+        emit(line)
+
+
 def case_lines(root_label: str, dev, emit) -> None:
     from dwarf_bench_tpu_torch.ops import (
         bitonic_cuda,
@@ -693,6 +799,7 @@ def host_lines(dev, emit) -> None:
         cumsum_cuda,
         filter_cuda,
         hist_cuda,
+        lock_add_cuda,
         reduce_cuda,
         scan,
         scan_tail_cuda,
@@ -727,6 +834,7 @@ def host_lines(dev, emit) -> None:
                                      reduce_cuda.SCRATCH_WORDS)
     rs, rwords = rscratch.data_ptr(), rscratch.numel()
     mask = x > 0
+    order = torch.arange(n - 1, -1, -1, device=dev)
     phase_a = getattr(chunk_stats_cuda, "chunk_stats", chunk_stats)
     x2 = torch.full((n, 128), 9, dtype=torch.int32, device=dev)
     x19 = x2.view(-1)[: 1 << 19]
@@ -776,6 +884,10 @@ def host_lines(dev, emit) -> None:
         ("launch('dbt_reduce_sum')",
          lambda: _build.launch("dbt_reduce_sum", dev, xp, n, op, rs, rwords)),
         ("histogram wrapper hi80", lambda: hist_cuda.histogram(k, 80)),
+        ("grid_accumulate wrapper, 64 blocks",
+         lambda: lock_add_cuda.grid_accumulate(64, dev)),
+        ("x[index] then emit_prefix wrapper, 4096",
+         lambda: compact_cuda.emit_prefix(x[order], n)),
         ("scan_tail_streams wrapper",
          lambda: scan_tail_cuda.scan_tail_streams(x, x, 5, 16384, 512)),
         ("phase A of filter_sparse (4096 x 128)",
@@ -788,6 +900,9 @@ def host_lines(dev, emit) -> None:
         ("masked_select(x, x < 5)",
          lambda: torch.masked_select(x, x < 5)),
     ]
+    if _takes_index(compact_cuda.emit_prefix):
+        pieces.append(("emit_prefix wrapper with an index, 4096",
+                       lambda: compact_cuda.emit_prefix(x, n, order)))
     for label, piece in pieces:
         for _ in range(100):
             piece()
@@ -812,8 +927,8 @@ def main(argv=None) -> int:
                         "weighted")
     parser.add_argument("--host", action="store_true")
     parser.add_argument("--only", default="core,compaction,histogram,scan",
-                        help="case groups, of core, compaction, histogram "
-                        "and scan")
+                        help="case groups, of core, compaction, histogram, "
+                        "scan, emit and lock")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: CUDA is not available", file=sys.stderr)
@@ -829,8 +944,9 @@ def main(argv=None) -> int:
 
     label = args.label or args.root
     groups = {"core": case_lines, "compaction": compaction_lines,
-              "histogram": histogram_lines, "scan": scan_lines}
-    for group in args.only.split(","):
+              "histogram": histogram_lines, "scan": scan_lines,
+              "emit": emit_lines, "lock": lock_lines}
+    for group in filter(None, args.only.split(",")):
         groups[group](label, dev, emit)
     sweeps = {"histogram": histogram_sweep_lines, "weighted": sweep_lines}
     for name in filter(None, args.sweep.split(",")):

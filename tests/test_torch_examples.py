@@ -76,6 +76,25 @@ def test_grid_accumulate_matches_pallas(n_steps):
         assert np.array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("n_steps,resident", [(1, None), (2, None),
+                                              (64, None), (1000, 7),
+                                              (1 << 16, 4224)])
+def test_ticket_lock_serves_in_ticket_order(n_steps, resident):
+    """The card's ticket lock rendered on the CPU: blocks start in a drawn
+    order, at most ``resident`` at once (4224: 32 blocks an SM on an
+    H100), each holder finds the counter equal to its ticket, the result
+    equals the Pallas example's, and the scratch is left zero for the next
+    call on the stream."""
+    out, seen, scratch = lock_add_cuda._ticket_schedule(
+        n_steps, seed=n_steps, resident=resident)
+    assert seen == list(range(n_steps))
+    assert out == n_steps
+    if n_steps <= 1000:
+        assert out == int(np.asarray(_jax_example("lock_add").grid_accumulate(
+            n_steps, interpret=True))[0, 0])
+    assert scratch == (0, 0, 0)
+
+
 def test_grid_accumulate_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -8,6 +8,10 @@ file imports neither and runs on its own there:
 Every output is an integer, so kernel and twin must agree exactly.
 """
 
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -104,16 +108,25 @@ def test_histogram_explicit_plans(cuda, rng, blocks, mergers):
                 hist_cuda.histogram_plain(k[off:], 80))
 
 
-def test_histogram_refuses_more_mergers_than_the_card_holds(cuda, rng):
-    """A merger waits for every block, so a plan whose mergers the card
-    cannot hold at once would never finish: the kernel refuses it, and the
-    next call on the stream is exact."""
-    k = _t(rng.integers(0, 8192, 1 << 22), cuda)
-    # 8192 bins: at most 4 blocks of 512 lanes an SM, 528 on an H100
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        hist_cuda.launch_histogram(k, 8192, 1024, 1024)
-    assert torch.equal(hist_cuda.histogram(k, 64),
-                       hist_cuda.histogram_plain(k, 64))
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("hi_bins,blocks", [(64, 1024), (128, 2048)])
+def test_histogram_plan_the_card_cannot_hold_ends(cuda, hi_bins, blocks):
+    """Every block a merger, more blocks than an H100 holds at once (528 at
+    8192 bins, 396 at 2^14): mergers that waited on blocks unable to start
+    would hang. In a subprocess under a time limit, so that a hang fails
+    this test instead of stalling the suite: the cooperative launch is
+    refused, the wrapper raises the CUDA driver's error, and the next call on
+    the stream is exact."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "dwarf_bench_tpu_torch.utils.hist_plan",
+         str(hi_bins), str(blocks)],
+        capture_output=True, text=True, timeout=180, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "refused:" in proc.stdout, proc.stdout
+    assert "cooperative launch" in proc.stdout, proc.stdout
+    assert "next call exact: True" in proc.stdout, proc.stdout
 
 
 @pytest.mark.parametrize("off", [1, 2, 3])
@@ -320,12 +333,26 @@ def test_compact_mask(cuda, rng, ncols, n, sel):
         assert all(_same_prefix(o, p, k) for o, p in zip(outs, pouts))
 
 
+@pytest.mark.parametrize("index", [None, "permuted", "into longer vals"])
+@pytest.mark.parametrize("off", [0, 1, 2])
 @pytest.mark.parametrize("length,cap", [(0, 16), (37, 40), (128, 128),
+                                        (1023, 1100), (1025, 1025),
                                         (20480, 1 << 24)])
-def test_emit_prefix(cuda, rng, length, cap):
-    v = _t(rng.integers(-(2**31), 2**31, length), cuda)
-    assert _same_prefix(compact_cuda.emit_prefix(v, cap),
-                        compact_cuda.emit_prefix_plain(v, cap), length)
+def test_emit_prefix(cuda, rng, length, cap, index, off):
+    """With and without an index (its twin: the plain emit of vals[index]),
+    at the tile's edges (1024 values a block), with views of vals and of
+    the index off 16 bytes (the scalar path)."""
+    nvals = length if index != "into longer vals" else 3 * length + 5
+    v = _t(rng.integers(-(2**31), 2**31, nvals + off), cuda)[off:]
+    if index is None:
+        idx = None
+    else:
+        pos = rng.permutation(length) if index == "permuted" else \
+            rng.integers(0, nvals, length)
+        idx = torch.from_numpy(np.concatenate(
+            [np.zeros(off, np.int64), pos])).to(cuda)[off:]
+    exp = compact_cuda.emit_prefix_plain(v if idx is None else v[idx], cap)
+    assert _same_prefix(compact_cuda.emit_prefix(v, cap, idx), exp, length)
 
 
 @pytest.mark.parametrize("density", [0.0, 5e-4, 1e-2])
@@ -621,6 +648,31 @@ def test_filter_sparse_default_path_runs_phase_a_on_its_kernel(cuda, rng, n,
     assert _build.LAUNCHES["chunk_stats"] == before + 1
     assert int(count) == len(expected)
     assert np.array_equal(out[: len(expected)].cpu().numpy(), expected)
+
+
+def test_filter_sparse_folds_the_gather_into_the_emit(cuda, rng,
+                                                     monkeypatch):
+    """At 2^24 x < 5 the sparse path puts one kernel fewer on the card than
+    with the gather before the emit (the graph nodes of one call), with no
+    memset added, and both are exact."""
+    x = rng.integers(1, 10000, 1 << 24, endpoint=True).astype(np.int32)
+    xd = _t(x, cuda)
+    expected = scan.filter_oracle(x)
+
+    def call(v):
+        return scan.filter_sparse(v, assume_sparse=True)
+
+    folded = device_ops(call, xd)
+    out, count = call(xd)
+    emit = compact_cuda.emit_prefix
+    monkeypatch.setattr(compact_cuda, "emit_prefix",
+                        lambda vals, cap, index: emit(vals[index], cap))
+    gathered = device_ops(call, xd)
+    out_g, count_g = call(xd)
+    assert folded == (gathered[0] - 1, gathered[1])
+    for o, c in ((out, count), (out_g, count_g)):
+        assert int(c) == len(expected)
+        assert np.array_equal(o[: len(expected)].cpu().numpy(), expected)
 
 
 def test_wrappers_count_their_launches(cuda):
@@ -1259,10 +1311,28 @@ def test_vadd_is_one_kernel(cuda, rng, off):
 
 @pytest.mark.parametrize("n_steps", [1, 2, 64, 1000, 1 << 16])
 def test_grid_accumulate(cuda, n_steps):
-    got = lock_add_cuda.grid_accumulate(n_steps)
-    assert got.is_cuda and got.shape == (1, 1)
-    assert torch.equal(got, lock_add_cuda.grid_accumulate_plain(n_steps,
-                                                                cuda))
+    """Exact, and twice in a row on one stream: the second call finds the
+    lock's scratch zero, as the last ticket of the first left it."""
+    first = lock_add_cuda.grid_accumulate(n_steps)
+    second = lock_add_cuda.grid_accumulate(n_steps)
+    exp = lock_add_cuda.grid_accumulate_plain(n_steps, cuda)
+    for got in (first, second):
+        assert got.is_cuda and got.shape == (1, 1)
+        assert torch.equal(got, exp)
+    scratch = _build.stream_scratch("grid_accumulate", cuda,
+                                    lock_add_cuda.LOCK_SCRATCH_WORDS)
+    assert not scratch.any()
+
+
+@pytest.mark.parametrize("n_steps", [1, 64, 1 << 16])
+def test_grid_accumulate_is_one_kernel_and_no_memset(cuda, n_steps):
+    assert device_ops(lock_add_cuda.grid_accumulate, n_steps, cuda) == (1, 0)
+
+
+def test_l2_round_trip_is_measured(cuda):
+    """One thread's chain of dependent atomics: a round trip between 10 ns
+    and 10 us (the chain's last value is checked inside)."""
+    assert 1e-8 < lock_add_cuda.l2_round_trip(cuda, chain=4096) < 1e-5
 
 
 @pytest.mark.parametrize("n", [1, 4097, 1_000_003])

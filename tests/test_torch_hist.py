@@ -109,7 +109,7 @@ def _swar(k, hi_bins):
 @pytest.mark.parametrize("hi_bins", [8, 80, 128])
 @pytest.mark.parametrize("threads,blocks,mergers", [
     (32, 1, 1), (32, 3, 2), (64, 8, 8), (32, 37, 16), (128, 64, 64),
-    (512, 64, 64)])
+    (512, 64, 64), (32, 128, 128)])
 @pytest.mark.parametrize("offset", [0, 1, 3])
 def test_histogram_schedule_matches_swar_pallas(schedule_keys, hi_bins,
                                                 threads, blocks, mergers,
@@ -128,6 +128,32 @@ def test_histogram_schedule_matches_swar_pallas(schedule_keys, hi_bins,
     assert len(merged) == (mergers if blocks > 1 else 0)
     assert len(set(merged)) == len(merged)
     assert narrow
+
+
+# Blocks an H100 holds at once (132 SMs): 4 a SM at 8192 bins (2048
+# threads), 3 at 2^14 (the copy's 64 KB of shared memory).
+H100_RESIDENT = {64: 4 * 132, 128: 3 * 132}
+
+
+@pytest.mark.parametrize("hi_bins,blocks", [(64, 1024), (128, 2048)])
+def test_histogram_schedule_refuses_a_grid_the_context_cannot_hold(
+        schedule_keys, hi_bins, blocks):
+    """Every block a merger (mergers == blocks), more blocks than an H100
+    holds at once: the mergers would wait on blocks that cannot start, so
+    the cooperative launch is refused before anything runs, as the CUDA driver
+    refuses it; the wrapper's plans fit one block an SM. A context that
+    holds the grid runs it exactly."""
+    k = torch.from_numpy(schedule_keys)
+    with pytest.raises(RuntimeError, match="cooperative launch"):
+        hist_cuda._histogram_schedule(k, hi_bins, blocks, blocks, threads=32,
+                                      resident=H100_RESIDENT[hi_bins])
+    assert hist_cuda.histogram_plan(hi_bins, 1 << 24)[0] <= 132
+    if blocks <= 1024:  # the copies of the larger plan take 268 MB here
+        out, merged, _, counters = hist_cuda._histogram_schedule(
+            k, hi_bins, blocks, blocks, threads=32, seed=5)
+        assert np.array_equal(out.numpy(), _swar(schedule_keys, hi_bins))
+        assert sorted(merged) == list(range(blocks))
+        assert counters == [0, 0, 0]
 
 
 @pytest.mark.parametrize("case", [

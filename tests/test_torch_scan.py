@@ -18,7 +18,7 @@ import torch
 
 from dwarf_bench_tpu.cli import main as jax_main
 from dwarf_bench_tpu.ops import scan as jax_scan
-from dwarf_bench_tpu_torch.ops import chunk_stats_cuda, scan
+from dwarf_bench_tpu_torch.ops import chunk_stats_cuda, compact_cuda, scan
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -57,6 +57,35 @@ def test_filter_sparse_matches_jax(rng, n, threshold, deep, caps):
         got = scan.filter_sparse(torch.from_numpy(x), threshold,
                                  assume_sparse=assume, **caps)
         _same(got, ref, x, threshold)
+
+
+@pytest.mark.parametrize("n,threshold,deep,stats_pallas", [
+    (1 << 18, 5, 0, None), (1 << 18, 5, 40, None), (100_000, 5, 5, None),
+    (100_000, 5, 5, False), (1 << 18, 5, 40, True)])
+def test_filter_sparse_emits_through_the_index(rng, monkeypatch, n, threshold,
+                                               deep, stats_pallas):
+    """The ordering's gather is folded into the emit: filter_sparse hands
+    emit_prefix the unsorted values and the sort's order (int64, the first
+    min(capacity, values) of it), once a call, and the whole result equals
+    the JAX package's filter_sparse, which sorts (position, value) pairs
+    instead."""
+    seen = []
+    emit = compact_cuda.emit_prefix
+
+    def spy(vals, capacity, index=None):
+        seen.append((vals.numel(), capacity,
+                     None if index is None else (index.dtype, index.numel())))
+        return emit(vals, capacity, index)
+
+    monkeypatch.setattr(compact_cuda, "emit_prefix", spy)
+    x = _data(rng, n, deep)
+    ref = jax_scan.filter_sparse(jnp.asarray(x), threshold, interpret=True)
+    got = scan.filter_sparse(torch.from_numpy(x), threshold,
+                             stats_pallas=stats_pallas)
+    _same(got, ref, x, threshold)
+    assert len(seen) == 1
+    nvals, capacity, index = seen[0]
+    assert index == (torch.int64, min(capacity, nvals))
 
 
 def test_filter_sparse_assume_sparse_matches_jax(rng):

@@ -146,14 +146,31 @@ def test_compact_mask_matches_pallas(rng, ncols, sel, capacity):
         assert np.array_equal(g.numpy()[:k], _np(r)[:k])
 
 
+@pytest.mark.parametrize("index", [None, "permuted", "into longer vals"])
 @pytest.mark.parametrize("length,capacity", [(128, 128), (100, 1000),
-                                             (37, 40)])
-def test_emit_prefix_matches_pallas(rng, length, capacity):
-    v = rng.integers(I32_MIN, I32_MAX, length, endpoint=True).astype(np.int32)
-    ref = _np(emit_prefix_pallas(jnp.asarray(v), capacity, interpret=True))
-    out = compact_cuda.emit_prefix(_t(v), capacity)
+                                             (37, 40), (0, 16)])
+def test_emit_prefix_matches_pallas(rng, length, capacity, index):
+    """Without an index, vals itself; with one, vals[index] against the
+    Pallas emit of the gathered values (the JAX package gathers by sorting
+    pairs): a permutation of vals, and positions into a longer vals with
+    repeats. L = 0 and L = capacity included."""
+    nvals = length if index != "into longer vals" else 3 * length + 5
+    v = rng.integers(I32_MIN, I32_MAX, nvals, endpoint=True).astype(np.int32)
+    idx = None
+    if index == "permuted":
+        idx = rng.permutation(length)
+    elif index == "into longer vals":
+        idx = rng.integers(0, nvals, length)
+    emitted = v if idx is None else v[idx]
+    # the interpreter cannot run the Pallas kernel's zero-length DMA: at
+    # L = 0 no slot holds data, and only the shape is compared
+    ref = emitted if length == 0 else _np(emit_prefix_pallas(
+        jnp.asarray(emitted), capacity, interpret=True))
+    out = compact_cuda.emit_prefix(
+        _t(v), capacity, None if idx is None else torch.from_numpy(idx))
     assert out.dtype == torch.int32 and out.shape == (capacity,)
     assert np.array_equal(out.numpy()[:length], ref[:length])
+    assert np.array_equal(out.numpy()[:length], emitted)
 
 
 @pytest.mark.parametrize("n,threshold,capacity", [
@@ -194,6 +211,13 @@ def test_wrappers_check_their_inputs():
         compact_cuda.compact_mask(x, (x,))  # the mask is bool
     with pytest.raises(ValueError):
         compact_cuda.emit_prefix(x, 7)
+    idx = torch.arange(8)
+    with pytest.raises(ValueError):  # longer than the capacity
+        compact_cuda.emit_prefix(x, 7, idx)
+    with pytest.raises(ValueError):  # int32 index
+        compact_cuda.emit_prefix(x, 8, idx.to(torch.int32))
+    with pytest.raises(ValueError):  # not contiguous
+        compact_cuda.emit_prefix(x, 8, idx[::2])
     with pytest.raises(ValueError):
         scan_tail_cuda.scan_tail_streams(x, x[:4], 5, 4, 4)
 
@@ -205,5 +229,6 @@ def test_cpu_tensors_take_the_twins():
     filter_cuda.filter(x, 5)
     compact_cuda.compact_mask(x < 5, (x,))
     compact_cuda.emit_prefix(x, 100)
+    compact_cuda.emit_prefix(x, 100, torch.arange(99, -1, -1))
     scan_tail_cuda.scan_tail_streams(x, x, 5, 4, 4)
     assert _build.LAUNCHES == before
