@@ -40,8 +40,9 @@ with nvcc, then:
      CUDA graph, must be one a pass of the plan for merge_bitonic at 2^25
      (3), one kernel and no memset for merge_fill in each mode, reduce_sum,
      vadd (aligned or not), compact_mask (1-3 columns), filter,
-     scan_tail_streams, the histogram (hi80 2^22, hi128 2^20) and
-     grid_accumulate (64 and 2^16 blocks, with the time an acquisition),
+     scan_tail_streams, the histogram (hi80 2^22, hi128 2^20),
+     grid_accumulate (64 and 2^16 blocks, with the time an acquisition) and
+     gb_diag in each mode (also timed cold and as graph replays),
      and two
      kernels and no memset for the scan's phase A (chunk_stats, cumsum);
      the three compactions run back to back on one stream and three times
@@ -76,7 +77,16 @@ with nvcc, then:
      2^20, Scan 2^24, three iterations); the vadd and lock_add examples in
      this process; and every measurement-script name once at its main's
      shape, against its plain version;
-  6. prints the kernels whose profiler time fell below their bound, one
+  6. runs the headline bench (``dwarf_bench_tpu_torch.bench``) in this
+     process at the JAX bench's sizes with the launch counts set to 0:
+     prints its JSON line, requires nothing skipped, every component
+     checked against its oracle and positive, no cold share of the roofline
+     above 1.0, and every kernel of its path launched; holds the bench's
+     timer to ``graph_ms`` of the same call (``filter_sparse`` at 2^24 and
+     the hi80 histogram, within 10 % or 3 us) and requires it to raise on a
+     call that reads back to the host; runs ``entry()``'s forward on the
+     card against the same forward on the CPU;
+  7. prints the kernels whose profiler time fell below their bound, one
      JSON line with each kernel's launches, error and times, and last the
      JSON line ``{"ok": true, "device": {...}}``.
 
@@ -1160,7 +1170,13 @@ def phase_kernels(dev):
         plain = (lambda k, v, mode=mode:
                  mv.gb_diag_plain(k, v, mode, 8, 8, 32, 4096))
         run("_gb_diag_kernel_factory", f"{mode} n=2^22", fn, plain, gb_k,
-            gb_v, timed=True, cost=diag_cost(mode, 1 << 22))
+            gb_v, timed=True, cost=diag_cost(mode, 1 << 22), cold=True,
+            graph=True)
+        ops = device_ops(fn, gb_k, gb_v)
+        print(f"kernel _gb_diag_kernel_factory [{mode} n=2^22]: kernels "
+              f"per call {ops[0]!r}, memsets {ops[1]!r}", flush=True)
+        check(ops == (1, 0), f"_gb_diag_kernel_factory {mode}: {ops} "
+                             "kernels and memsets a call, expected 1 and 0")
         run("_gb_diag_kernel_factory",
             f"{mode} n=2^18+777 (part-filled block), out-of-range keys",
             fn, plain, t(rng.integers(-5, 64 + 5, odd)),
@@ -1884,6 +1900,111 @@ def script_names(dev):
           "main's shape", flush=True)
 
 
+# the kernels the headline bench's components and extras must launch
+BENCH_KERNELS = ("histogram", "cumsum", "groupby_small", "weighted_histogram",
+                 "chunk_stats", "scan_tail_streams", "compact_mask",
+                 "emit_prefix", "filter", "reduce_sum", "merge_bitonic",
+                 "merge_fill")
+
+
+def phase_bench(dev):
+    """The port's headline bench (``python -m dwarf_bench_tpu_torch.bench``)
+    in this process at the JAX bench's sizes, with the launch counts set to
+    0 before and read after: its line printed on a line of its own; nothing
+    skipped and nothing raised (each component's call was checked once
+    against its host oracle: the sorted column, the group sums, the join's
+    id sets, the scan's rows, and the extras' rows, sum and probes); every
+    component positive and no cold share of the roofline above 1.0; every
+    kernel of its path launched. Returns the counts."""
+    from dwarf_bench_tpu_torch import bench
+    from dwarf_bench_tpu_torch.ops import _build
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    line, failed = bench.run(dev)
+    launches = dict(_build.LAUNCHES)
+    print(json.dumps(line), flush=True)
+    print(f"bench: {time.perf_counter() - t0!r} s", flush=True)
+    check(not failed and line["skipped"] == [],
+          f"bench: skipped {line['skipped']}")
+    comps = line["components_rows_per_s"]
+    check(set(comps) == set(bench.COMPONENTS)
+          and all(v > 0 for v in comps.values()),
+          f"bench: components {comps}")
+    for op, frac in line["components_roofline_frac"].items():
+        check(0 < frac <= 1.0, f"bench: {op} reads {frac!r} of its "
+                               "roofline, cold")
+    for k in BENCH_KERNELS:
+        check(launches[k] > 0, f"bench: kernel {k} was not launched")
+    print(f"launches in the bench phase: {launches}", flush=True)
+    return launches
+
+
+def phase_timers(dev):
+    """The bench's timer against ``graph_ms`` of the same call (within
+    10 % or 3 us, whichever is larger): ``filter_sparse`` at 2^24 x < 5 and
+    the count histogram at hi80 2^22, warm; and a call that reads back to
+    the host must make the timer raise."""
+    from dwarf_bench_tpu_torch.ops import hist_cuda, scan
+    from dwarf_bench_tpu_torch.utils import timing
+
+    rng = np.random.default_rng(20261018)
+    x = torch.from_numpy(rng.integers(1, 10000, 1 << 24, endpoint=True)
+                         .astype(np.int32)).to(dev)
+    k = torch.from_numpy(rng.integers(0, 10000, 1 << 22)
+                         .astype(np.int32)).to(dev)
+    cases = (("filter_sparse 2^24 x<5",
+              lambda v: scan.filter_sparse(v, assume_sparse=True), x),
+             ("histogram hi80 2^22", lambda v: hist_cuda.histogram(v, 80), k))
+    for label, fn, arg in cases:
+        slope_ms = timing.time_device_looped_inplace(fn, arg) * 1e3
+        cold_slope_ms = timing.time_device_looped_inplace(
+            fn, arg, cold=True) * 1e3
+        g = timing.graph_ms(fn, arg)
+        print(f"timer {label}: time_device_looped_inplace {slope_ms!r} ms, "
+              f"cold {cold_slope_ms!r} ms, graph_ms {g!r} ms", flush=True)
+        check(abs(slope_ms - g) <= max(0.1 * g, 3e-3),
+              f"timer {label}: {slope_ms!r} ms against graph_ms {g!r}")
+
+    def reads_back(v):
+        return v[: int(v[0].item()) + 1]
+
+    try:
+        timing.time_device_looped_inplace(reads_back, x)
+    except RuntimeError as e:
+        check("reads back to the host" in str(e), f"timer: {e}")
+        print("timer: a call that reads back to the host raises", flush=True)
+    else:
+        check(False, "timer: a call that reads back to the host was timed")
+
+
+def phase_entry(dev):
+    """``dwarf_bench_tpu_torch.entry``'s forward on the card against the
+    same forward on the CPU (both sorts stable: every output equal), and
+    against the id-set oracle, with the launch counts set to 0 before and
+    read after. Returns the counts."""
+    from dwarf_bench_tpu_torch import entry
+    from dwarf_bench_tpu_torch.ops import _build, csr_join
+
+    fn, (a, b) = entry.entry()
+    check(a.device == dev and b.device == dev, "entry: inputs not on card")
+    _build.reset_launches()
+    got = fn(a, b)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(launches["histogram"] > 0, "entry: histogram was not launched")
+    exp = fn(a.cpu(), b.cpu())
+    for name, g, e in zip(("found", "pos", "counts", "id_buffer"), got, exp):
+        check(torch.equal(g.cpu(), e), f"entry: {name} differs from the CPU")
+    sets = [set(exp[3][p: p + c].tolist()) for p, c in
+            zip(exp[1].tolist(), exp[2].tolist())]
+    check(sets == csr_join.oracle_id_sets(a.cpu().numpy(), b.cpu().numpy()),
+          "entry: the id sets differ from the oracle")
+    print(f"entry: forward on the card equals the CPU's "
+          f"({int(got[0].sum())} of {a.numel()} probes found)", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1908,16 +2029,23 @@ def main() -> int:
     library_launches = phase_library(dev)
     t4 = time.perf_counter()
     front_launches = phase_front_end(dev)
+    t5 = time.perf_counter()
+    bench_launches = phase_bench(dev)
+    t6 = time.perf_counter()
+    phase_timers(dev)
+    entry_launches = phase_entry(dev)
     print(f"phase seconds: kernels {t2 - t1!r}, dwarfs and ops "
           f"{t3 - t2!r}, library paths {t4 - t3!r}, front end "
-          f"{time.perf_counter() - t4!r}, whole script "
+          f"{t5 - t4!r}, bench {t6 - t5!r}, timers and entry "
+          f"{time.perf_counter() - t6!r}, whole script "
           f"{time.perf_counter() - t0!r}", flush=True)
     launches = {name: dwarf_launches[name] + library_launches[name]
-                + front_launches[name] for name in KERNELS}
+                + front_launches[name] + bench_launches[name]
+                + entry_launches[name] for name in KERNELS}
     for name in KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the "
-                                  "dwarfs, the library paths or the front "
-                                  "end")
+                                  "dwarfs, the library paths, the front "
+                                  "end, the bench or the entry")
         check(stats[name]["ms"] is not None, f"kernel {name} was not timed")
 
     print("device_ms below bound_ms (a trace lost kernels, or the inputs sat "

@@ -84,7 +84,7 @@ _SIGNATURES = {
     "dbt_lock_add": ([_P, _P, _I32, _P], ctypes.c_int),
     "dbt_l2_round_trip": ([_P, _I32, _P, _P], ctypes.c_int),
     "dbt_gb_diag": (
-        [_P, _P, _I64, _P, _I32, _I32, _I32, _I64, _I32, _P],
+        [_P, _P, _I64, _P, _I32, _I32, _I32, _I64, _I32, _P, _I64, _P],
         ctypes.c_int,
     ),
     "dbt_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -271,9 +271,9 @@ def stream_scratch(kind: str, device: torch.device, words: int) -> torch.Tensor:
     one stream runs in order, so a call never overlaps the last call that
     used the buffer; each stream has its own. It saves a torch.empty, and
     its host time, a call; a kernel that needs it zero must leave it zero
-    (``dbt_cumsum`` and the compactions do, ``dbt_reduce_sum`` its
-    ticket, ``dbt_histogram`` its counters and ``dbt_lock_add`` its
-    lock)."""
+    (``dbt_cumsum`` and the compactions do, ``dbt_reduce_sum`` and
+    ``dbt_gb_diag`` their tickets, ``dbt_histogram`` its counters and
+    ``dbt_lock_add`` its lock)."""
     index = device.index
     key = (kind, index, torch._C._cuda_getCurrentRawStream(index))
     buf = _STREAM_SCRATCH.get(key)

@@ -200,6 +200,15 @@ def _gb_dbuf_kernel(ga: int = 8, gb: int = 8, rows: int = 32,
 
 # -- the diagnostic modes (gb_diag.cu) --------------------------------------
 
+# csrc/gb_diag.cu's scratch: a ticket word and padding (32 words), then an
+# accumulator of ga * gb words; zero when made, and left zero
+GB_DIAG_HEADER_WORDS = 32
+
+
+def gb_diag_scratch_words(cells: int) -> int:
+    """int32 scratch words of ``dbt_gb_diag`` for ``cells`` = ga * gb."""
+    return GB_DIAG_HEADER_WORDS + cells
+
 
 def gb_diag_plain(k: torch.Tensor, v: torch.Tensor, mode: str, ga: int,
                   gb: int, rows: int, w: int) -> torch.Tensor:
@@ -261,12 +270,17 @@ def _gb_diag_kernel_factory(mode: str, ga: int = 8, gb: int = 8,
                              "values")
         if device.type == "cpu":
             return gb_diag_plain(k, v, mode, ga, gb, rows, w)
-        out = torch.zeros(ga, gb, dtype=torch.int32, device=device)
         if k.numel() == 0:
-            return out
+            return torch.zeros(ga, gb, dtype=torch.int32, device=device)
+        # written whole by the kernel; its scratch (ticket, accumulator) is
+        # zero when made and left zero
+        out = torch.empty(ga, gb, dtype=torch.int32, device=device)
+        scratch = _build.stream_scratch("gb_diag", device,
+                                        gb_diag_scratch_words(ga * gb))
         _build.launch("dbt_gb_diag", device, k.data_ptr(), v.data_ptr(),
                       k.numel(), out.data_ptr(), ga, gb, rows, w,
-                      DIAG_MODES.index(mode))
+                      DIAG_MODES.index(mode), scratch.data_ptr(),
+                      scratch.numel())
         _build.LAUNCHES[op] += 1
         return out
 

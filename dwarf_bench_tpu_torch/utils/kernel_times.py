@@ -1,7 +1,7 @@
 """Times of the cumsum, histogram, weighted-histogram, bitonic-merge, sum,
-merge-fill, vadd, compaction, sparse-scan, prefix-emit and lock kernels,
-their library calls, and the host cost of a kernel launch, on one CUDA
-card.
+merge-fill, vadd, compaction, sparse-scan, prefix-emit, lock and gb_diag
+kernels, their library calls, and the host cost of a kernel launch, on one
+CUDA card.
 
     python dwarf_bench_tpu_torch/utils/kernel_times.py [--root DIR] [--sweep]
         [--host] [--label NAME] [--only GROUP,...]
@@ -35,8 +35,9 @@ takes one, with the sort's int64 index, against ``out[:L].copy_`` and
 against the gather before the emit, and ``filter_sparse`` at 2^24 x < 5;
 (group ``lock``) the card's L2 round trip of an atomic (global timer and
 CUDA events) and ``grid_accumulate`` at 64, 2^12 and 2^16 blocks with the
-time an acquisition; each with the kernels and memsets a call puts on the
-card (``device_ops``). ``--only`` runs the named groups (none: ``--only
+time an acquisition; (group ``diag``) ``_gb_diag_kernel_factory`` in its
+three modes at 2^22 rows; each with the kernels and memsets a call puts on
+the card (``device_ops``). ``--only`` runs the named groups (none: ``--only
 ""``).
 ``--sweep`` times the weighted histogram under every (cluster, copies) plan
 and the count histogram under every (blocks, mergers) plan at the
@@ -49,13 +50,15 @@ calls (the host's dispatch shows when it is slower than the card);
 ``device_ms``, the CUDA kernels' time per call in a torch.profiler trace;
 ``graph_ms`` (the merge, the sum, the fill, vadd, the compactions), CUDA
 events around replays of a CUDA graph of several calls, which no trace can
-thin out; ``kernels_ms`` (the merge, the fill, vadd, the compactions), each
+thin out (``utils/timing.graph_ms``, this checkout's also under
+``--root``); ``kernels_ms`` (the merge, the fill, vadd, the compactions), each
 kernel of one call in launch order; ``bound_ms`` (the compactions, the
 histogram, the scan), the bytes a call must move at 3.35 TB/s
 (``copy_if_bytes``, ``mask_bytes``); ``copies_bytes`` (the histogram), the
 bytes its copies add, beside the bound and not in it;
-``cold_ms``, the median event bracket with ``FLUSH_BYTES`` written and then
-half of them read back just before it, outside the bracket: the inputs are
+``cold_ms`` (``utils/timing.cold_ms``), the median event bracket with
+``timing.FLUSH_BYTES`` written and then half of them read back just before
+it, outside the bracket: the inputs are
 no longer in the 50 MB L2, the lines it holds are clean (a write alone
 leaves them dirty, and the call would pay for writing them back), and the
 host queues the call while the card is still flushing, so the bracket holds
@@ -75,8 +78,11 @@ import time
 import numpy as np
 import torch
 
-FLUSH_BYTES = 256 << 20
-_flush = None
+if __package__:
+    from .timing import capture, cold_ms, graph_ms
+else:  # run as a script: this file's directory is sys.path[0], and this
+    # checkout's timers time another checkout's package under --root
+    from timing import capture, cold_ms, graph_ms
 
 
 def card_line() -> str:
@@ -91,26 +97,6 @@ def events_ms(fn, *args, k: int = 50) -> float:
     fn(*args)
     pairs = []
     for _ in range(k):
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        fn(*args)
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
-def cold_ms(fn, *args, k: int = 20) -> float:
-    """Median event bracket of one call with FLUSH_BYTES written, and half
-    of them read back, on the stream just before it, outside the bracket."""
-    global _flush
-    if _flush is None:
-        _flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    fn(*args)
-    pairs = []
-    for i in range(k):
-        _flush.fill_(i & 0x7F)
-        _flush[: FLUSH_BYTES // 2].view(torch.int64).sum()
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
         fn(*args)
@@ -159,22 +145,6 @@ def traced_kernels(fn, *args, k: int = 3) -> list:
     return sorted(events, key=lambda e: e.time_range.start)
 
 
-def _capture(fn, *args, k: int = 1):
-    """(graph, stream): a CUDA graph of ``k`` calls of ``fn(*args)``,
-    captured on a stream that a first call warmed (a wrapper's per-stream
-    scratch is made outside the capture). The calls must not read back to
-    the host."""
-    stream = torch.cuda.Stream()
-    with torch.cuda.stream(stream):
-        fn(*args)
-    stream.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
-        for _ in range(k):
-            fn(*args)
-    return graph, stream
-
-
 # CUgraphNodeType of the driver API (cudaGraphNodeType has the same values)
 _KERNEL_NODE, _MEMSET_NODE = 0, 2
 
@@ -194,7 +164,7 @@ def device_ops(fn, *args):
         if rc != 0:
             raise RuntimeError(f"{name}: CUDA driver error {rc}")
 
-    graph, _ = _capture(fn, *args)
+    graph, _ = capture(fn, *args)
     try:
         raw = ctypes.c_void_p(graph.raw_cuda_graph())
         n = ctypes.c_size_t(0)
@@ -210,27 +180,6 @@ def device_ops(fn, *args):
     finally:
         graph.reset()
     return types.count(_KERNEL_NODE), types.count(_MEMSET_NODE)
-
-
-def graph_ms(fn, *args, k: int = 10, reps: int = 5) -> float:
-    """Device ms of one call of ``fn(*args)``: the median of CUDA-event
-    brackets around ``reps`` replays of a CUDA graph of ``k`` calls, over
-    ``k``. Unlike a profiler trace it cannot lose a kernel; it holds the
-    gaps between the graph's kernels (no host dispatch), which a trace's
-    kernel sum leaves out."""
-    graph, stream = _capture(fn, *args, k=k)
-    pairs = []
-    with torch.cuda.stream(stream):
-        graph.replay()
-        for _ in range(reps):
-            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            s.record()
-            graph.replay()
-            e.record()
-            pairs.append((s, e))
-    stream.synchronize()
-    graph.reset()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs) / k
 
 
 def kernels_ms(fn, *args, traces: int = 3) -> list:
@@ -604,6 +553,25 @@ def emit_lines(root_label: str, dev, emit) -> None:
           lambda v: scan.filter_sparse(v, assume_sparse=True), (x,))
 
 
+def diag_lines(root_label: str, dev, emit) -> None:
+    """``_gb_diag_kernel_factory`` in its three modes at its main's shape
+    (2^22 rows, keys in [0, 64), values in [1, 10000], ga = gb = 8, rows
+    32, w 4096), with the kernels and memsets a call and the bound of the
+    rows the mode reads (key and value) and the 64 cells written."""
+    from dwarf_bench_tpu_torch.ops import measure_variants as mv
+
+    rng = np.random.default_rng(8)
+    n, rows, w, gb = 1 << 22, 32, 4096, 8
+    k = torch.from_numpy(rng.integers(0, 64, n).astype(np.int32)).to(dev)
+    v = torch.from_numpy(rng.integers(1, 10000, n, endpoint=True)
+                         .astype(np.int32)).to(dev)
+    blocks = -(-n // (rows * w))
+    for mode, read in (("full", n), ("dotonly", blocks * w),
+                       ("nodot", blocks * rows * gb)):
+        _case(root_label, emit, f"gb_diag {mode} 2^22",
+              mv._gb_diag_kernel_factory(mode), (k, v), 8 * read + 4 * 64)
+
+
 LOCK_STEPS = (64, 1 << 12, 1 << 16)
 
 
@@ -928,7 +896,7 @@ def main(argv=None) -> int:
     parser.add_argument("--host", action="store_true")
     parser.add_argument("--only", default="core,compaction,histogram,scan",
                         help="case groups, of core, compaction, histogram, "
-                        "scan, emit and lock")
+                        "scan, emit, lock and diag")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: CUDA is not available", file=sys.stderr)
@@ -945,7 +913,7 @@ def main(argv=None) -> int:
     label = args.label or args.root
     groups = {"core": case_lines, "compaction": compaction_lines,
               "histogram": histogram_lines, "scan": scan_lines,
-              "emit": emit_lines, "lock": lock_lines}
+              "emit": emit_lines, "lock": lock_lines, "diag": diag_lines}
     for group in filter(None, args.only.split(",")):
         groups[group](label, dev, emit)
     sweeps = {"histogram": histogram_sweep_lines, "weighted": sweep_lines}

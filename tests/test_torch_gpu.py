@@ -1384,6 +1384,180 @@ def test_gb_diag(cuda, rng, mode, n, shape):
     assert got.shape == (ga, gb) and torch.equal(got, exp)
 
 
+@pytest.mark.parametrize("mode", ["full", "dotonly", "nodot"])
+@pytest.mark.parametrize("n,shape", [(4096 * 32 - 1, (8, 8, 32, 4096)),
+                                     (4096 * 32 + 1, (8, 8, 32, 4096)),
+                                     (100_003, (4, 4, 5, 96)),
+                                     (100_003, (8, 16, 7, 100)),
+                                     ((1 << 22) + 5, (64, 64, 2, 4096))])
+def test_gb_diag_edges(cuda, rng, mode, n, shape):
+    """Blocks of rows x w cut one row short and one row past, w not a power
+    of two (the dotonly division path), and 4096 cells over a full grid
+    (one lane a cell in the last block's sum)."""
+    ga, gb, rows, w = shape
+    if mode == "nodot" and ga > gb:
+        pytest.skip("nodot needs ga <= gb")
+    k = _t(rng.integers(-5, ga * gb + 5, n), cuda)
+    v = _t(rng.integers(-(2**31), 2**31, n), cuda)
+    got = measure_variants._gb_diag_kernel_factory(mode, ga, gb, rows, w)(k, v)
+    exp = measure_variants.gb_diag_plain(k, v, mode, ga, gb, rows, w)
+    assert got.shape == (ga, gb) and torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("mode", ["full", "dotonly", "nodot"])
+def test_gb_diag_one_key(cuda, rng, mode):
+    """Every row one key: each lane's run-length fold holds one cell."""
+    n = 1 << 22
+    k = torch.full((n,), 37, dtype=torch.int32, device=cuda)
+    v = _t(rng.integers(1, 10001, n), cuda)
+    got = measure_variants._gb_diag_kernel_factory(mode)(k, v)
+    assert torch.equal(got, measure_variants.gb_diag_plain(
+        k, v, mode, 8, 8, 32, 4096))
+
+
+@pytest.mark.parametrize("mode", ["full", "dotonly", "nodot"])
+def test_gb_diag_is_one_kernel_and_no_memset(cuda, rng, mode):
+    n = 1 << 22
+    k = _t(rng.integers(0, 64, n), cuda)
+    v = _t(rng.integers(1, 10001, n), cuda)
+    assert device_ops(measure_variants._gb_diag_kernel_factory(mode),
+                      k, v) == (1, 0)
+
+
+def test_gb_diag_back_to_back_and_on_two_streams(cuda, rng):
+    """The last block leaves the ticket at 0: calls back to back on one
+    stream, and on two streams at once (each with its own scratch), are
+    each exact."""
+    n = 1_000_003
+    k = _t(rng.integers(-3, 67, n), cuda)
+    v = _t(rng.integers(1, 10001, n), cuda)
+    fns = {m: measure_variants._gb_diag_kernel_factory(m)
+           for m in ("full", "dotonly", "nodot")}
+    exp = {m: measure_variants.gb_diag_plain(k, v, m, 8, 8, 32, 4096)
+           for m in fns}
+    for _ in range(3):
+        for m, fn in fns.items():
+            assert torch.equal(fn(k, v), exp[m])
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(1_000_000)
+            outs.append([(m, fn(k, v)) for m, fn in fns.items()
+                         for _ in range(3)])
+    torch.cuda.synchronize()
+    for out in outs:
+        for m, got in out:
+            assert torch.equal(got, exp[m])
+    scratch = _build.stream_scratch(
+        "gb_diag", cuda, measure_variants.gb_diag_scratch_words(64))
+    assert not scratch[: measure_variants.gb_diag_scratch_words(64)].any()
+
+
+# -- the timers and the bench ------------------------------------------------
+
+
+def _agree(timer_s, graph_ms_):
+    """The slope timer against graph_ms of the same call: within 10 % or
+    3 us, whichever is larger."""
+    return abs(timer_s * 1e3 - graph_ms_) <= max(0.1 * graph_ms_, 3e-3)
+
+
+def test_looped_timer_agrees_with_graph_ms(cuda, rng):
+    from dwarf_bench_tpu_torch.utils import timing
+
+    x = _t(rng.integers(1, 10001, 1 << 24), cuda)
+    fn = lambda v: scan.filter_sparse(v, assume_sparse=True)  # noqa: E731
+    k = _t(rng.integers(0, 10000, 1 << 22), cuda)
+    for f, a in ((fn, (x,)), (lambda v: hist_cuda.histogram(v, 80), (k,))):
+        t = timing.time_device_looped_inplace(f, *a)
+        g = timing.graph_ms(f, *a)
+        assert _agree(t, g), (t * 1e3, g)
+        cold = timing.time_device_looped(f, *a, cold=True)
+        assert cold > 0.8 * t, (cold, t)
+
+
+def test_timers_raise_on_a_read_back(cuda):
+    from dwarf_bench_tpu_torch.utils import timing
+
+    x = torch.ones(1024, dtype=torch.int32, device=cuda)
+
+    def reads_back(v):
+        return v + int(v.sum().item())
+
+    for timer in (timing.time_device_looped,
+                  timing.time_device_looped_inplace):
+        with pytest.raises(RuntimeError, match="reads back to the host"):
+            timer(reads_back, x)
+    with pytest.raises(RuntimeError, match="reads back to the host"):
+        timing.check_sync_free(lambda v: scan.filter_sparse(v), x)
+
+
+def test_captured_cooperative_histogram_replays_under_the_timer(cuda, rng):
+    """The count histogram's cooperative launch captured in the timer's
+    graphs: the replays run, and a replayed graph's output is exact."""
+    from dwarf_bench_tpu_torch.utils import timing
+
+    k = _t(rng.integers(0, 10000, 1 << 22), cuda)
+    exp = hist_cuda.histogram_plain(k, 80)
+    out = torch.empty_like(exp)
+    fn = lambda v: out.copy_(hist_cuda.histogram(v, 80))  # noqa: E731
+    assert timing.time_device_looped(fn, k, k=4) > 0
+    out.zero_()
+    graph, stream = timing.capture(fn, k, k=2)
+    out.zero_()
+    with torch.cuda.stream(stream):
+        graph.replay()
+    stream.synchronize()
+    graph.reset()
+    assert torch.equal(out, exp)
+
+
+@pytest.mark.parametrize("name,n", [("radix", 1 << 16), ("groupby", 1 << 16),
+                                    ("groupby_big", 1 << 16),
+                                    ("join", 1 << 16), ("scan", 1 << 20)])
+def test_bench_components_on_the_card(cuda, name, n):
+    from dwarf_bench_tpu_torch import bench
+
+    extras = {}
+    cold, warm, events = bench.run_component(
+        name, n, np.random.default_rng(0), cuda, extras)
+    assert cold > 0 and warm > 0 and events > 0
+
+
+def test_bench_on_the_card(cuda, capsys, monkeypatch):
+    import json
+
+    from dwarf_bench_tpu_torch import bench
+
+    monkeypatch.setattr(bench, "SIZES", {
+        "radix": 1 << 16, "groupby": 1 << 16, "groupby_big": 1 << 16,
+        "join": 1 << 16, "scan": 1 << 20, "scan_sel50_extra": 1 << 16,
+        "reduce_extra": 1 << 20})
+    monkeypatch.setenv("BENCH_HASH_N", str(1 << 17))
+    assert bench.main([]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["skipped"] == []
+    assert set(line["components_rows_per_s"]) == set(bench.COMPONENTS)
+    assert all(v > 0 for v in line["components_rows_per_s"].values())
+    assert "H100" in line["device"] or "," in line["device"]
+
+
+def test_entry_on_the_card_matches_the_cpu(cuda):
+    from dwarf_bench_tpu_torch import entry
+
+    fn, (a, b) = entry.entry()
+    assert a.is_cuda and b.is_cuda
+    got = fn(a, b)
+    exp = fn(a.cpu(), b.cpu())
+    assert torch.equal(got[0].cpu(), exp[0])
+    assert torch.equal(got[2].cpu(), exp[2])
+    # both sorts are stable here: positions and id_buffer agree exactly
+    assert torch.equal(got[1].cpu(), exp[1])
+    assert torch.equal(got[3].cpu(), exp[3])
+
+
 @pytest.mark.parametrize("groups,executors", [(64, 64), (20, 1024),
                                               (4096, 1024), (16, 3)])
 def test_groupby_partials_on_cuda_matches_cpu(cuda, rng, groups, executors):

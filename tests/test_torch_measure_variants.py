@@ -147,14 +147,9 @@ def test_gb_diag_matches_script(rng, mode, naccs):
     _same(mv._gb_diag_kernel_factory(mode, naccs=naccs)(T(k), T(v)), ref)
 
 
-@pytest.mark.parametrize("mode", ["full", "dotonly", "nodot"])
-def test_gb_diag_plain_closed_forms(rng, mode):
-    """The plain version against a loop over the rows, at a shape where
-    ga < gb and with keys out of range, which the port drops."""
-    ga, gb, rows, w = 4, 8, 3, 16
-    n = 2 * rows * w + 5
-    k = rng.integers(-2, ga * gb + 3, n)
-    v = rng.integers(-(2**20), 2**20, n)
+def _gb_diag_loop(k, v, mode, ga, gb, rows, w):
+    """The closed forms of ``csrc/gb_diag.cu``'s header, a row at a time."""
+    n = k.size
     exp = np.zeros((ga, gb), np.int64)
     kp = np.concatenate([k, np.zeros((-n) % (rows * w), np.int64)])
     vp = np.concatenate([v, np.zeros((-n) % (rows * w), np.int64)])
@@ -170,9 +165,46 @@ def test_gb_diag_plain_closed_forms(rng, mode):
             exp[key // gb, i % w] -= 128
             if key % gb < ga:
                 exp[key % gb, i % w] += p
+    return exp.astype(np.int32)
+
+
+@pytest.mark.parametrize("mode", ["full", "dotonly", "nodot"])
+def test_gb_diag_plain_closed_forms(rng, mode):
+    """The plain version against a loop over the rows, at a shape where
+    ga < gb and with keys out of range, which the port drops."""
+    ga, gb, rows, w = 4, 8, 3, 16
+    n = 2 * rows * w + 5
+    k = rng.integers(-2, ga * gb + 3, n)
+    v = rng.integers(-(2**20), 2**20, n)
     got = mv.gb_diag_plain(T(k.astype(np.int32)), T(v.astype(np.int32)),
                            mode, ga, gb, rows, w)
-    assert np.array_equal(got.numpy(), exp.astype(np.int32))
+    assert np.array_equal(got.numpy(), _gb_diag_loop(k, v, mode, ga, gb,
+                                                     rows, w))
+
+
+@pytest.mark.parametrize("mode", ["full", "dotonly", "nodot"])
+@pytest.mark.parametrize("key", [0, 13, 31])
+def test_gb_diag_plain_one_key(rng, mode, key):
+    """Every row one key, the case the kernel's run-length fold in
+    registers takes (one shared add a lane instead of one a row): the
+    plain version still gives the closed forms, the padding's -128 in
+    nodot included."""
+    ga, gb, rows, w = 4, 8, 3, 16
+    n = 3 * rows * w + 7
+    k = np.full(n, key)
+    v = rng.integers(-(2**20), 2**20, n)
+    got = mv.gb_diag_plain(T(k.astype(np.int32)), T(v.astype(np.int32)),
+                           mode, ga, gb, rows, w)
+    assert np.array_equal(got.numpy(), _gb_diag_loop(k, v, mode, ga, gb,
+                                                     rows, w))
+
+
+@pytest.mark.parametrize("ga,gb", [(4, 4), (8, 8), (64, 64)])
+def test_gb_diag_scratch_holds_the_ticket_and_the_cells(ga, gb):
+    """``csrc/gb_diag.cu`` takes a ticket word and padding (32 words), then
+    an accumulator a cell, and refuses a smaller scratch."""
+    assert mv.gb_diag_scratch_words(ga * gb) == 32 + ga * gb
+    assert mv.GB_DIAG_HEADER_WORDS == 32
 
 
 def test_script_asserts_are_value_errors():
