@@ -86,7 +86,17 @@ with nvcc, then:
      the hi80 histogram, within 10 % or 3 us) and requires it to raise on a
      call that reads back to the host; runs ``entry()``'s forward on the
      card against the same forward on the CPU;
-  7. prints the kernels whose profiler time fell below their bound, one
+  7. drives the distributed layer (``dwarf_bench_tpu_torch.parallel``) as
+     an NCCL world of one rank with the launch counts set to 0: every
+     builder once at the headline bench's per-chip sizes on a (1,) and a
+     (1, 1) mesh (the joins 2^20 x 2^20 in all their forms, the rows join,
+     the group-bys at 2^22 and G = 64 and at 2^20 and G = 2^16, the filter at
+     2^24 x < 5 and 2^20 x < 5000, the sample sort at 2^22), each checked
+     against a host oracle with zero overflow, then timed (events and
+     device time, beside the card); runs the dry run
+     (``python -m dwarf_bench_tpu_torch.dryrun``) and Radix 2^22 through the
+     CLI with ``--profile_dir``, whose trace must name the histogram kernel;
+  8. prints the kernels whose profiler time fell below their bound, one
      JSON line with each kernel's launches, error and times, and last the
      JSON line ``{"ok": true, "device": {...}}``.
 
@@ -2005,6 +2015,232 @@ def phase_entry(dev):
     return launches
 
 
+# the kernels the distributed layer's builders launch on one rank: the
+# dense joins' build (histogram), the filter's engine (phase A, the tail,
+# the compactions, the emit, and filter where its caps trip), the group-bys
+# (groupby_small) and the CSR build's and the rows join's compaction
+PARALLEL_KERNELS = ("histogram", "chunk_stats", "cumsum", "scan_tail_streams",
+                    "compact_mask", "emit_prefix", "filter", "groupby_small")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _pair_counts(a: np.ndarray, b: np.ndarray):
+    """(A's count of each B row's key, the total of matching pairs), both
+    exact in 64 bits."""
+    ca = np.bincount(a, minlength=1 << 14).astype(np.int64)
+    cb = np.bincount(b, minlength=1 << 14).astype(np.int64)
+    return ca[b], int(np.sum(ca[: cb.size] * cb[: ca.size]))
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().view(np.uint32)
+
+
+def parallel_calls(dev, mesh, mesh2):
+    """Each builder of ``dwarf_bench_tpu_torch.parallel`` at the headline
+    bench's per-chip sizes on this one-rank world, with its inputs on the
+    card and a host check of its outputs: (label, fn, args, check)."""
+    from dwarf_bench_tpu_torch import parallel as par
+    from dwarf_bench_tpu_torch.common.datagen import make_unique_random
+    from dwarf_bench_tpu_torch.ops.join import seq_join_oracle
+
+    rng = np.random.default_rng(20261019)
+    n = 1 << 20
+    a = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
+    b = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
+    per_row, pairs = _pair_counts(a, b)
+    # one key on 55 % of both sides: past the heavy threshold (capacity / 2)
+    a_s, b_s = a.copy(), b.copy()
+    a_s[rng.random(n) < 0.55] = 7
+    b_s[rng.random(n) < 0.55] = 7
+    _, pairs_s = _pair_counts(a_s, b_s)
+    a7 = int((a_s == 7).sum())
+    uk = [make_unique_random(n, seed=s) for s in (21, 22, 23, 24)]
+    rows_oracle = seq_join_oracle(*uk)
+    g64 = (rng.integers(0, 64, 1 << 22).astype(np.uint32),
+           rng.integers(1, 10000, 1 << 22, endpoint=True).astype(np.uint32))
+    g16 = (rng.integers(0, 1 << 16, n).astype(np.uint32),
+           rng.integers(1, 10000, n, endpoint=True).astype(np.uint32))
+    x24 = rng.integers(1, 10000, 1 << 24, endpoint=True).astype(np.int32)
+    x20 = rng.integers(1, 10000, n, endpoint=True).astype(np.int32)
+    xs = rng.integers(1, 10000, 1 << 22, endpoint=True).astype(np.uint32)
+
+    def put(*arrays):
+        return par.shard_rows(mesh, *arrays) if len(arrays) > 1 else \
+            (par.shard_rows(mesh, *arrays),)
+
+    def group_sums(keys, vals, g):
+        s = np.bincount(keys, weights=vals.astype(np.float64), minlength=g)
+        return (s.astype(np.uint64) % (1 << 32)).astype(np.uint32)
+
+    def join_check(out):
+        counts, local, total, ov = out
+        return (int(ov) == 0 and int(total) == pairs == int(local)
+                and np.array_equal(counts.cpu().numpy(), per_row))
+
+    def ring_check(out):
+        acc, local, total = out
+        return int(total) == pairs and np.array_equal(acc.cpu().numpy(),
+                                                      per_row)
+
+    def skew_check(out):
+        light, heavy, total, ov = out
+        h = heavy.cpu().numpy().astype(np.int64)
+        return (int(ov) == 0
+                and np.array_equal(h, np.where(b_s == 7, a7, 0))
+                and int(light.sum(dtype=torch.int64)) + int(h.sum()) == pairs_s
+                and int(total) % (1 << 32) == pairs_s % (1 << 32))
+
+    def rows_check(out):
+        k, av, bv, cnt, ov = out
+        c = int(cnt)
+        rows = np.stack([_u32(t[:c]).astype(np.uint64) for t in (k, av, bv)],
+                        axis=1)
+        rows = rows[np.lexsort(rows.T[::-1])]
+        return int(ov) == 0 and np.array_equal(rows, rows_oracle)
+
+    def dense_gb_check(keys, vals, g):
+        exp = group_sums(keys, vals, g)
+        return lambda out: np.array_equal(_u32(out), exp)
+
+    def shuffle_gb_check(out):
+        sums, ov = out
+        return int(ov) == 0 and np.array_equal(_u32(sums), group_sums(*g64, 64))
+
+    def filter_check(x, thr):
+        hits = x[x < thr]
+
+        def ok(out):
+            vals, cnt, off, total = out
+            c = int(cnt)
+            return (c == int(total) == hits.size and int(off) == 0
+                    and np.array_equal(vals[:c].cpu().numpy(), hits))
+        return ok
+
+    def sort_check(out):
+        buf, valid, ov = out
+        v = int(valid)
+        return (int(ov) == 0 and v == xs.size
+                and np.array_equal(_u32(buf[:v]), np.sort(xs)))
+
+    join = dict(rows_per_chip=n, distinct_cap=1 << 14, ht_size=1 << 15)
+    ring = dict(rows_per_chip=n, distinct_cap=1 << 14, ht_size=1 << 15)
+    j2 = dict(rows_per_chip=n, distinct_cap=1 << 14, ht_size=1 << 15,
+              cap_ici=n, cap_dcn=n)
+    ab, ab2 = put(a, b), par.shard_rows(mesh2, a, b)
+    return [
+        ("dist_csr_join 2^20 x 2^20",
+         par.dist_csr_join(mesh, **join, shuffle_capacity=n), ab, join_check),
+        ("dist_csr_join dense 2^20 x 2^20",
+         par.dist_csr_join(mesh, **join, shuffle_capacity=n, dense=True), ab,
+         join_check),
+        ("dist_csr_join_ring 2^20 x 2^20",
+         par.dist_csr_join_ring(mesh, **ring), ab, ring_check),
+        ("dist_csr_join_ring dense 2^20 x 2^20",
+         par.dist_csr_join_ring(mesh, **ring, dense=True), ab, ring_check),
+        ("dist_csr_join_skew 2^20 x 2^20, key 7 on 55 %",
+         par.dist_csr_join_skew(mesh, **join, shuffle_capacity=n),
+         put(a_s, b_s), skew_check),
+        ("dist_csr_join_2d (1, 1) 2^20 x 2^20",
+         par.dist_csr_join_2d(mesh2, **j2), ab2, join_check),
+        ("dist_csr_join_ring_2d (1, 1) 2^20 x 2^20",
+         par.dist_csr_join_ring_2d(mesh2, **ring), ab2, ring_check),
+        ("dist_hash_join_rows 2^20 unique",
+         par.dist_hash_join_rows(mesh, shuffle_capacity=n, ht_size=2 * n),
+         put(*uk), rows_check),
+        ("dist_groupby_dense 2^22 G=64", par.dist_groupby_dense(mesh, 64),
+         put(*g64), dense_gb_check(*g64, 64)),
+        ("dist_groupby_shuffle 2^22 G=64",
+         par.dist_groupby_shuffle(mesh, 64, 1 << 22), put(*g64),
+         shuffle_gb_check),
+        ("dist_groupby_dense 2^20 G=2^16",
+         par.dist_groupby_dense(mesh, 1 << 16), put(*g16),
+         dense_gb_check(*g16, 1 << 16)),
+        ("dist_filter 2^24 x<5", par.dist_filter(mesh, 5, 1 << 24),
+         put(x24), filter_check(x24, 5)),
+        ("dist_filter 2^20 x<5000", par.dist_filter(mesh, 5000, n),
+         put(x20), filter_check(x20, 5000)),
+        ("dist_sort 2^22", par.dist_sort(mesh, 1 << 22), put(xs),
+         sort_check),
+    ]
+
+
+def phase_parallel(dev):
+    """The distributed layer on the card as an NCCL world of one rank: every
+    builder at the headline bench's per-chip sizes on a (1,) and a (1, 1)
+    mesh, each checked once against a host oracle with zero overflow, with
+    the launch counts set to 0 before and read after; then each call's
+    median CUDA-event time of 10 calls and its profiler device time, beside
+    the card; the dry run (``python -m dwarf_bench_tpu_torch.dryrun``) as a
+    subprocess; and Radix 2^22 through the CLI with ``--profile_dir``,
+    whose trace must name the histogram kernel. Returns the counts."""
+    import torch.distributed as dist
+
+    from dwarf_bench_tpu_torch import parallel as par
+    from dwarf_bench_tpu_torch.ops import _build
+    from dwarf_bench_tpu_torch.utils.timing import kernel_time, sync
+
+    t0 = time.perf_counter()
+    par.init_multihost(f"localhost:{_free_port()}", num_processes=1,
+                       process_id=0)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"parallel: {dist.get_backend()} world of "
+              f"{dist.get_world_size()}")
+        mesh, mesh2 = par.make_mesh(), par.make_mesh_2d()
+        check(tuple(mesh2.shape) == (1, 1), f"parallel: 2-D mesh "
+                                            f"{tuple(mesh2.shape)}")
+        calls = parallel_calls(dev, mesh, mesh2)
+        _build.reset_launches()
+        outs = [sync(fn(*args)) for _, fn, args, _ in calls]
+        launches = dict(_build.LAUNCHES)
+        for (label, _, _, ok), out in zip(calls, outs):
+            check(ok(out), f"parallel {label}: differs from the host oracle")
+        del outs
+        card = card_line()
+        for label, fn, args, _ in calls:
+            print(f"parallel {label}: valid; events "
+                  f"{kernel_time(fn, *args) * 1e3!r} ms, device "
+                  f"{busy_ms(fn, *args)!r} ms ({card})", flush=True)
+    finally:
+        dist.destroy_process_group()
+    for k in PARALLEL_KERNELS:
+        check(launches[k] > 0, f"parallel: kernel {k} was not launched")
+    print(f"launches in the parallel phase: {launches}", flush=True)
+
+    proc = subprocess.run([sys.executable, "-m", "dwarf_bench_tpu_torch.dryrun"],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0 and "dryrun_multichip(1) OK" in proc.stdout,
+          f"parallel: the dry run failed: {proc.stderr[-2000:]}")
+    print(proc.stdout.strip(), flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "dwarf_bench_tpu_torch", "Radix",
+             "--device=gpu", "--input_size", str(1 << 22), "--iterations=3",
+             f"--profile_dir={tmp}"],
+            capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"--profile_dir: Radix failed: "
+                                    f"{proc.stderr[-2000:]}")
+        traces = os.listdir(tmp)
+        check(len(traces) == 1, f"--profile_dir: {traces}")
+        with open(os.path.join(tmp, traces[0])) as f:
+            text = f.read()
+        check("histogram_kernel" in text,
+              "--profile_dir: the trace names no histogram kernel")
+    print(f"--profile_dir: one trace ({len(text)} bytes) naming "
+          "histogram_kernel", flush=True)
+    print(f"parallel phase: {time.perf_counter() - t0!r} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2034,18 +2270,22 @@ def main() -> int:
     t6 = time.perf_counter()
     phase_timers(dev)
     entry_launches = phase_entry(dev)
+    t7 = time.perf_counter()
+    parallel_launches = phase_parallel(dev)
     print(f"phase seconds: kernels {t2 - t1!r}, dwarfs and ops "
           f"{t3 - t2!r}, library paths {t4 - t3!r}, front end "
           f"{t5 - t4!r}, bench {t6 - t5!r}, timers and entry "
-          f"{time.perf_counter() - t6!r}, whole script "
-          f"{time.perf_counter() - t0!r}", flush=True)
+          f"{t7 - t6!r}, parallel {time.perf_counter() - t7!r}, whole "
+          f"script {time.perf_counter() - t0!r}", flush=True)
     launches = {name: dwarf_launches[name] + library_launches[name]
                 + front_launches[name] + bench_launches[name]
-                + entry_launches[name] for name in KERNELS}
+                + entry_launches[name] + parallel_launches[name]
+                for name in KERNELS}
     for name in KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the "
                                   "dwarfs, the library paths, the front "
-                                  "end, the bench or the entry")
+                                  "end, the bench, the entry or the "
+                                  "distributed layer")
         check(stats[name]["ms"] is not None, f"kernel {name} was not timed")
 
     print("device_ms below bound_ms (a trace lost kernels, or the inputs sat "

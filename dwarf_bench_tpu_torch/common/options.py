@@ -59,6 +59,9 @@ class RunOptions:
     # Extension beyond the reference CSV schema: opt-in so the default
     # report stays byte-compatible.
     extended_report: bool = False
+    # Write a torch.profiler Chrome trace to this directory (one trace per
+    # run call).
+    profile_dir: str = ""
 
 
 @dataclasses.dataclass

@@ -8,6 +8,10 @@ device-resident inputs (utils/timing.kernel_time), measured once per
 (dwarf, size) and reported on every iteration row: the kernel time of a
 fixed program on fixed shapes does not depend on the iteration.
 
+``RunOptions.profile_dir`` wraps each run call in ``torch.profiler`` (the
+CPU, and the card's kernels when the dwarf runs there) and writes one Chrome
+trace a call into that directory.
+
 Validation is exact at every size: on the card a full readback is cheap,
 so the checksum shortcuts the JAX package takes above 2^16 rows over its
 TPU link are not needed.
@@ -15,11 +19,14 @@ TPU link are not needed.
 
 from __future__ import annotations
 
+import os
+import tempfile
 import time
 from typing import Callable
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from ..common.device import resolve_device
 from ..common.dwarf import Dwarf
@@ -39,9 +46,26 @@ class TorchDwarf(Dwarf):
 
     def run(self, opts: RunOptions) -> None:
         # reference dwarfs announce the device per run (e.g. join.cpp:24-25)
-        print(f"Selected device: {self.device(opts)}")
-        for size in opts.input_size:
-            self._run(int(size), self.meter())
+        device = self.device(opts)
+        print(f"Selected device: {device}")
+        if not opts.profile_dir:
+            for size in opts.input_size:
+                self._run(int(size), self.meter())
+            return
+        # one Chrome trace per run call, as the JAX package's
+        # jax.profiler.trace writes one per run call
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            for size in opts.input_size:
+                self._run(int(size), self.meter())
+        os.makedirs(opts.profile_dir, exist_ok=True)
+        fd, path = tempfile.mkstemp(suffix=".pt.trace.json",
+                                    prefix=f"{self.name}-",
+                                    dir=opts.profile_dir)
+        os.close(fd)
+        prof.export_chrome_trace(path)
 
     def _run(self, buf_size: int, meter) -> None:  # pragma: no cover
         raise NotImplementedError

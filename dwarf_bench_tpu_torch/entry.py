@@ -12,8 +12,8 @@ of the step.
 
     python -m dwarf_bench_tpu_torch.entry [--device=gpu|cpu]
 
-The multi-chip dry run (``__graft_entry__.dryrun_multichip``) waits for the
-port's distributed layer.
+The multi-chip dry run (``__graft_entry__.dryrun_multichip``) is
+``dwarf_bench_tpu_torch/dryrun.py``.
 """
 
 from __future__ import annotations

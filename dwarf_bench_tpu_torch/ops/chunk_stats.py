@@ -47,3 +47,12 @@ def chunk_stats(x2: torch.Tensor, threshold: int):
     d = thr - x2.clamp_min(_wrap(thr - 512))  # int32, wraps like XLA's
     vs = d.clamp_(0, 256).sum(1, dtype=torch.int32).clamp_max_(511)
     return cnt * 512 + vs, exclusive_cumsum(cnt)
+
+
+def chunk_stats_xla(x2: torch.Tensor, threshold: int):
+    """The JAX package's name of this contract (its phase A, fused by
+    XLA): ``chunk_stats_cuda.chunk_stats``, the kernel on a CUDA tensor and
+    ``chunk_stats`` above on a CPU tensor."""
+    from . import chunk_stats_cuda
+
+    return chunk_stats_cuda.chunk_stats(x2, threshold)

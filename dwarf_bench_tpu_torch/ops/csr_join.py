@@ -263,15 +263,18 @@ def join_id_sets(t: CsrJoinTable, res: CsrProbeResult):
                             res.counts.cpu().tolist())]
 
 
-def build_dense(a_keys: torch.Tensor) -> DenseCsrTable:
+def build_dense(a_keys: torch.Tensor, row_ids=None) -> DenseCsrTable:
     """One-to-many CSR index: counts from the histogram kernel, pos their
     exclusive cumsum, and one pair sort for the id_buffer. PRECONDITION
     (checked on the host by ``dense_applicable``): valid keys span < 2^14
     as uint32. Rows with key EMPTY are padding and are left out.
+    ``row_ids`` (int32 bit patterns) replace the local row numbers in the
+    id_buffer: the distributed join carries global ids through its shuffle.
 
-    The sort is stable, so ids are ascending within a key. That is the
-    order the JAX package's packed one-word sort gives for n < 2^18; above
-    it, its pair sort is unstable and only the id sets per key agree."""
+    The sort is stable, so ids keep their row order within a key. That is
+    the order the JAX package's packed one-word sort gives for n < 2^18
+    without ``row_ids``; otherwise its pair sort is unstable and only the
+    id sets per key agree."""
     n = a_keys.shape[0]
     device = a_keys.device
     ak = as_u32(a_keys)
@@ -283,7 +286,8 @@ def build_dense(a_keys: torch.Tensor) -> DenseCsrTable:
     pos = torch.cumsum(counts, 0, dtype=torch.int32) - counts
     # EMPTY rows take the key 0xFFFF, past every valid (< 2^14) key
     k16 = torch.where(valid, rel_key, 0xFFFF).to(torch.int32)
-    ids = torch.arange(n, dtype=torch.int32, device=device)
+    ids = torch.arange(n, dtype=torch.int32, device=device) \
+        if row_ids is None else row_ids
     _, sid = sort_by_key(k16, ids, stable=True)
     num_distinct = (counts > 0).sum(dtype=torch.int32)
     # pos of any non-empty key is <= n - cnt; keys with cnt == 0 may wrap

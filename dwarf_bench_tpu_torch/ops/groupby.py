@@ -15,6 +15,14 @@ Engines, chosen by ``groupby_sum``:
     ``weighted_histogram_i8_swar_pallas`` / ``weighted_histogram_i8_pallas``).
   * anything else: ``groupby_sum_sorted``, a ``torch.sort`` plus cumsum
     differences, where the JAX package uses ``lax.sort``.
+
+The JAX package's other engine names keep their call sites working:
+``groupby_sum_matmul``, ``groupby_sum_matmul_bf16`` and
+``groupby_sum_scatter`` compute ``groupby_sum``'s contract by one-hot
+matmuls or a scatter-add, TPU formulations of the same sums, so here they
+are ``groupby_sum``. ``groupby_sum_packed_sort`` is an engine of its own:
+one sort of ``(key << 16) | val``, cumsum differences at the group ends and
+a ``compact_mask`` of those ends.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import groupby_cuda, hist_cuda
+from . import compact_cuda, groupby_cuda, hist_cuda
 from .primitives import as_u32, sort_by_key, wrap_i32
 
 
@@ -89,6 +97,60 @@ def groupby_sum(
     if num_groups <= (1 << 16) and vals_below_2p14:
         return groupby_sum_2level(keys, vals, num_groups)
     return groupby_sum_sorted(keys, vals, num_groups)
+
+
+def groupby_sum_matmul(
+    keys: torch.Tensor, vals: torch.Tensor, num_groups: int
+) -> torch.Tensor:
+    """The JAX package's one-hot f32 matmul engine (any G): keys outside
+    [0, G) add nothing, sums wrap mod 2^32. ``groupby_sum``'s engines."""
+    return groupby_sum(keys, vals, num_groups)
+
+
+def groupby_sum_matmul_bf16(
+    keys: torch.Tensor, vals: torch.Tensor, num_groups: int
+) -> torch.Tensor:
+    """The JAX package's bf16 value-plane engine, exact there for values
+    below 2^14; every engine here is exact for any value."""
+    return groupby_sum(keys, vals, num_groups)
+
+
+def groupby_sum_scatter(
+    keys: torch.Tensor, vals: torch.Tensor, num_groups: int
+) -> torch.Tensor:
+    """The JAX package's scatter-add engine over keys in [0, G). Keys
+    outside it are dropped, as ``groupby_sum_sorted`` drops them (ROADMAP
+    queue 3: the JAX scatter wraps negative keys)."""
+    return groupby_sum(keys, vals, num_groups)
+
+
+def groupby_sum_packed_sort(
+    keys: torch.Tensor, vals: torch.Tensor, num_groups: int
+) -> torch.Tensor:
+    """One unstable sort of the packed word ``(key << 16) | val`` (uint32
+    arithmetic), then the inclusive cumsum of the values, the group ends
+    compacted (kernel ``compact_mask``, ``num_groups`` slots) and each
+    group's sum the difference of consecutive ends' cumsums, mod 2^32.
+    PRECONDITIONS (the caller's, as in the JAX package): G <= 2^16, keys
+    and values below 2^16. Ends of keys at or past G are dropped."""
+    if num_groups > (1 << 16):
+        raise ValueError(f"groupby_sum_packed_sort: G = {num_groups} > 2^16")
+    device = keys.device
+    packed = ((as_u32(keys) << 16) | as_u32(vals)) & 0xFFFFFFFF
+    sp = torch.sort(packed).values
+    k_s = (sp >> 16).to(torch.int32)
+    cs = wrap_i32(torch.cumsum(sp & 0xFFFF, 0))
+    is_end = torch.ones_like(k_s, dtype=torch.bool)
+    is_end[:-1] = k_s[1:] != k_s[:-1]
+    (ek, ecs), cnt = compact_cuda.compact_mask(is_end, (k_s, cs), num_groups)
+    valid = torch.arange(num_groups, device=device) < cnt
+    prev = torch.cat([ecs.new_zeros(1), ecs[:-1]])
+    diff = wrap_i32(ecs.to(torch.int64) - prev.to(torch.int64))
+    at = torch.where(valid & (ek < num_groups), ek.to(torch.int64),
+                     num_groups)
+    out = torch.zeros(num_groups + 1, dtype=torch.int32, device=device)
+    out[at] = torch.where(valid, diff, 0)
+    return out[:num_groups]
 
 
 def groupby_partials(

@@ -84,3 +84,28 @@ def join_rows_sorted(res: JoinResult) -> np.ndarray:
         [col[:c].cpu().numpy().view(np.uint32).astype(np.uint64)
          for col in (res.keys, res.a_vals, res.b_vals)], axis=1)
     return rows[np.lexsort(rows.T[::-1])] if c else rows
+
+
+def _u32_column(col) -> np.ndarray:
+    """A column as numpy: a tensor is read as uint32 bit patterns."""
+    if isinstance(col, torch.Tensor):
+        return col.cpu().numpy().view(np.uint32)
+    return np.asarray(col)
+
+
+def columns_to_rows(keys, *value_cols):
+    """Column store to row store (join_helpers.hpp to_row_store): a list of
+    (key, v1, v2, ...) tuples of ints. A tensor column holds uint32 bit
+    patterns and gives their unsigned values."""
+    cols = [_u32_column(keys)] + [_u32_column(c) for c in value_cols]
+    return list(zip(*[c.tolist() for c in cols]))
+
+
+def rows_to_columns(rows, n_cols: int):
+    """Row store to column store (join_helpers.hpp to_col_store): a tuple of
+    ``n_cols`` int32 tensors, the uint32 columns' bit patterns."""
+    if not rows:
+        return tuple(torch.empty(0, dtype=torch.int32) for _ in range(n_cols))
+    arr = np.asarray(rows, dtype=np.uint64)
+    return tuple(torch.from_numpy(arr[:, c].astype(np.uint32).view(np.int32))
+                 for c in range(n_cols))

@@ -3,6 +3,7 @@ against the JAX package's on the CPU."""
 
 import contextlib
 import io
+import json
 
 import pytest
 import torch
@@ -84,3 +85,30 @@ def test_gpu_without_cuda_raises_dwarf_bench_exception(monkeypatch, kind):
                      dwarf=kind)
     with pytest.raises(DwarfBenchException, match="CUDA is not available"):
         DwarfBench().make_measurements(conf)
+
+
+@pytest.mark.parametrize("dwarf,extra", [("Radix", []),
+                                         ("GroupBy", ["--groups_count=64"])])
+def test_profile_dir_writes_a_trace_per_run_call(tmp_path, capsys, dwarf,
+                                                 extra):
+    """``--profile_dir`` (the JAX CLI's flag and RunOptions field): each run
+    call, whatever its sizes, writes one torch.profiler Chrome trace, which
+    holds the dwarf's operators; without it nothing is written."""
+    out = tmp_path / "traces"
+    args = [dwarf, "--device=cpu", "--input_size", "1024", "2048",
+            "--iterations=2", *extra]
+    parsed = jax_cli.build_parser().parse_args(args + ["--profile_dir", "p"])
+    assert parsed.profile_dir == "p"
+    assert cli.build_parser().parse_args(args).profile_dir == ""
+    assert cli.main(args) == 0
+    assert not out.exists()
+    for calls in (1, 2):
+        assert cli.main(args + [f"--profile_dir={out}"]) == 0
+        traces = sorted(out.iterdir())
+        assert len(traces) == calls
+    capsys.readouterr()
+    for trace in traces:
+        assert trace.name.startswith(f"{dwarf}-")
+        assert trace.name.endswith(".pt.trace.json")
+        events = json.loads(trace.read_text())["traceEvents"]
+        assert any(e.get("name", "").startswith("aten::") for e in events)

@@ -1614,3 +1614,211 @@ def test_api_on_cuda(cuda, kind):
 @pytest.mark.parametrize("example", [bench_usage, vadd, lock_add])
 def test_examples_on_cuda(cuda, example):
     assert example.main([]) == 0
+
+
+# -- the distributed layer on a world of one NCCL rank ------------------------
+
+@pytest.fixture(scope="module")
+def nccl_meshes():
+    """An NCCL world of one rank (the card) with its (1,) and (1, 1)
+    meshes, destroyed after this module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import socket
+
+    import torch.distributed as dist
+
+    from dwarf_bench_tpu_torch import parallel
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    parallel.init_multihost(f"localhost:{port}", num_processes=1,
+                            process_id=0)
+    try:
+        yield parallel.make_mesh(), parallel.make_mesh_2d(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _pairs(a, b):
+    """(A's count of each B row's key, the number of matching pairs)."""
+    ca = np.bincount(a, minlength=1 << 14).astype(np.int64)
+    return ca[b], int(ca[b].sum())
+
+
+_DIST_JOINS = {
+    "dist_csr_join": dict(shuffle_capacity=1 << 16),
+    "dist_csr_join dense": dict(shuffle_capacity=1 << 16, dense=True),
+    "dist_csr_join_ring": {},
+    "dist_csr_join_ring dense": dict(dense=True),
+    "dist_csr_join_2d": dict(cap_ici=1 << 16, cap_dcn=1 << 16),
+    "dist_csr_join_2d dense": dict(cap_ici=1 << 16, cap_dcn=1 << 16,
+                                   dense=True),
+    "dist_csr_join_ring_2d": {},
+}
+
+
+@pytest.mark.parametrize("name", list(_DIST_JOINS))
+def test_dist_joins_on_one_nccl_rank(nccl_meshes, rng, name):
+    """Per-B-row counts (a world of one receives its rows in order), the
+    totals and zero overflow against the host; the dense builds launch the
+    histogram kernel, the general ones compact_mask."""
+    from dwarf_bench_tpu_torch import parallel
+
+    n = 1 << 16
+    a = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
+    b = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
+    per_row, pairs = _pairs(a, b)
+    builder, *dense = name.split()
+    mesh = nccl_meshes[1] if builder.endswith("_2d") else nccl_meshes[0]
+    fn = getattr(parallel, builder)(mesh, rows_per_chip=n,
+                                    distinct_cap=1 << 14, ht_size=1 << 15,
+                                    **_DIST_JOINS[name])
+    before = dict(_build.LAUNCHES)
+    out = fn(*parallel.shard_rows(mesh, a, b))
+    kernel = "histogram" if dense else "compact_mask"
+    assert _build.LAUNCHES[kernel] > before[kernel]
+    assert out[0].is_cuda
+    assert np.array_equal(out[0].cpu().numpy(), per_row)
+    assert int(out[1]) == int(out[2]) == pairs
+    if "ring" not in builder:
+        assert int(out[3]) == 0
+
+
+def test_dist_csr_join_skew_on_one_nccl_rank(nccl_meshes, rng):
+    from dwarf_bench_tpu_torch import parallel
+
+    mesh = nccl_meshes[0]
+    n = 1 << 16
+    a = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
+    b = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
+    a[rng.random(n) < 0.6] = 7
+    b[rng.random(n) < 0.6] = 7
+    _, pairs = _pairs(a, b)
+    fn = parallel.dist_csr_join_skew(mesh, rows_per_chip=n,
+                                     distinct_cap=1 << 14, ht_size=1 << 15,
+                                     shuffle_capacity=n)
+    light, heavy, total, ov = fn(*parallel.shard_rows(mesh, a, b))
+    h = heavy.cpu().numpy().astype(np.int64)
+    assert np.array_equal(h, np.where(b == 7, int((a == 7).sum()), 0))
+    assert int(light.sum(dtype=torch.int64)) + int(h.sum()) == pairs
+    assert int(total) % (1 << 32) == pairs % (1 << 32) and int(ov) == 0
+
+
+def test_dist_hash_join_rows_on_one_nccl_rank(nccl_meshes):
+    from dwarf_bench_tpu_torch import parallel
+    from dwarf_bench_tpu_torch.common.datagen import make_unique_random
+    from dwarf_bench_tpu_torch.ops.join import seq_join_oracle
+
+    mesh = nccl_meshes[0]
+    n = 1 << 16
+    cols = [make_unique_random(n, seed=s) for s in (21, 22, 23, 24)]
+    before = _build.LAUNCHES["compact_mask"]
+    k, a, b, cnt, ov = parallel.dist_hash_join_rows(
+        mesh, shuffle_capacity=n, ht_size=2 * n)(
+        *parallel.shard_rows(mesh, *cols))
+    assert _build.LAUNCHES["compact_mask"] == before + 1
+    c = int(cnt)
+    rows = np.stack([t[:c].cpu().numpy().view(np.uint32).astype(np.uint64)
+                     for t in (k, a, b)], axis=1)
+    assert int(ov) == 0
+    assert np.array_equal(rows[np.lexsort(rows.T[::-1])],
+                          seq_join_oracle(*cols))
+
+
+@pytest.mark.parametrize("groups,n", [(64, 1 << 18), (1 << 16, 1 << 16)])
+def test_dist_groupbys_on_one_nccl_rank(nccl_meshes, rng, groups, n):
+    from dwarf_bench_tpu_torch import parallel
+
+    mesh = nccl_meshes[0]
+    keys = rng.integers(0, groups, n).astype(np.uint32)
+    vals = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
+    exp = groupby.groupby_oracle(keys, vals, groups)
+    dk, dv = parallel.shard_rows(mesh, keys, vals)
+    before = _build.LAUNCHES["groupby_small"]
+    dense = parallel.dist_groupby_dense(mesh, groups)(dk, dv)
+    sums, ov = parallel.dist_groupby_shuffle(mesh, groups, n)(dk, dv)
+    if groups <= 4096:
+        assert _build.LAUNCHES["groupby_small"] == before + 2
+    for got in (dense, sums):
+        assert np.array_equal(got.cpu().numpy().view(np.uint32), exp)
+    assert int(ov) == 0
+
+
+@pytest.mark.parametrize("n,thr,kernel", [(1 << 20, 5, "chunk_stats"),
+                                          (1 << 16, 5000, "filter")])
+def test_dist_filter_on_one_nccl_rank(nccl_meshes, rng, n, thr, kernel):
+    from dwarf_bench_tpu_torch import parallel
+
+    mesh = nccl_meshes[0]
+    x = rng.integers(1, 10000, n, endpoint=True).astype(np.int32)
+    before = _build.LAUNCHES[kernel]
+    out, cnt, off, total = parallel.dist_filter(mesh, thr, n)(
+        parallel.shard_rows(mesh, x))
+    assert _build.LAUNCHES[kernel] > before
+    hits = x[x < thr]
+    assert int(cnt) == int(total) == hits.size and int(off) == 0
+    assert np.array_equal(out[: hits.size].cpu().numpy(), hits)
+
+
+def test_dist_sort_on_one_nccl_rank(nccl_meshes, rng):
+    from dwarf_bench_tpu_torch import parallel
+
+    mesh = nccl_meshes[0]
+    x = rng.integers(0, 1 << 32, 1 << 18, dtype=np.uint64).astype(np.uint32)
+    out, valid, ov = parallel.dist_sort(mesh, x.size)(
+        parallel.shard_rows(mesh, x))
+    v = int(valid)
+    assert int(ov) == 0 and v == int((x != 0xFFFFFFFF).sum())
+    assert np.array_equal(out[:v].cpu().numpy().view(np.uint32),
+                          np.sort(x)[:v])
+
+
+def test_shuffles_on_one_nccl_rank(nccl_meshes, rng):
+    """A world of one keeps every row in its order, in one slot: the
+    exchange is a copy through all_to_all_single on the card."""
+    from dwarf_bench_tpu_torch import parallel
+
+    mesh, mesh2 = nccl_meshes
+    n = 1 << 16
+    keys = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    keys[keys == 0xFFFFFFFF] = 1
+    vals = np.arange(n, dtype=np.uint32)
+    k, v = parallel.shard_rows(mesh, keys, vals)
+    rk, rv, rcnt, ov = parallel.partition_for_shuffle(
+        k, v, 1, n, mesh.get_group("x"))
+    assert int(rcnt[0]) == n and int(ov) == 0
+    assert torch.equal(rk[0], k) and torch.equal(rv[0], v)
+    rk, rv, rcnt, ov = parallel.partition_for_shuffle_2d(
+        k, (v,), 1, 1, n, n, mesh2.get_group("dcn"), mesh2.get_group("ici"))
+    assert int(rcnt[0]) == n and int(ov) == 0
+    assert torch.equal(rk[0], k) and torch.equal(rv[0][0], v)
+
+
+def test_ops_layer_names_on_the_card(cuda, rng):
+    """The JAX names the distributed layer and the JAX call sites use: the
+    packed-sort group-by (its group ends through compact_mask),
+    chunk_stats_xla (the chunk_stats kernel) and build_dense with global row
+    ids, each equal to the same call on the CPU."""
+    from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats_xla
+
+    keys = torch.from_numpy(rng.integers(0, 5100, 1 << 18).astype(np.int32))
+    vals = torch.from_numpy(rng.integers(0, 1 << 16, 1 << 18).astype(np.int32))
+    before = dict(_build.LAUNCHES)
+    got = groupby.groupby_sum_packed_sort(keys.cuda(), vals.cuda(), 5000)
+    assert _build.LAUNCHES["compact_mask"] == before["compact_mask"] + 1
+    assert torch.equal(got.cpu(),
+                       groupby.groupby_sum_packed_sort(keys, vals, 5000))
+    x2 = torch.from_numpy(rng.integers(1, 10000, (4096, 128), endpoint=True)
+                          .astype(np.int32))
+    got = chunk_stats_xla(x2.cuda(), 5)
+    assert _build.LAUNCHES["chunk_stats"] == before["chunk_stats"] + 1
+    for g, e in zip(got, chunk_stats_xla(x2, 5)):
+        assert torch.equal(g.cpu(), e)
+    a = torch.from_numpy(rng.integers(1, 10000, 1 << 16, endpoint=True)
+                         .astype(np.int32))
+    ids = torch.arange(1 << 16, dtype=torch.int32) + (3 << 16)
+    got = csr_join.build_dense(a.cuda(), row_ids=ids.cuda())
+    for g, e in zip(got, csr_join.build_dense(a, row_ids=ids)):
+        assert torch.equal(g.cpu(), e)

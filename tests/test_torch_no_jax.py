@@ -52,6 +52,9 @@ def test_import_loads_no_jax():
         "import dwarf_bench_tpu_torch.utils.kernel_times\n"
         "import dwarf_bench_tpu_torch.utils.timing, dwarf_bench_tpu_torch.utils.roofline\n"
         "import dwarf_bench_tpu_torch.bench, dwarf_bench_tpu_torch.entry\n"
+        "import dwarf_bench_tpu_torch.parallel, dwarf_bench_tpu_torch.dryrun\n"
+        "import dwarf_bench_tpu_torch.parallel.dist_join\n"
+        "import dwarf_bench_tpu_torch.parallel.collectives\n"
         "import dwarf_bench_tpu_torch.examples.bench_usage\n"
         "import dwarf_bench_tpu_torch.examples.vadd, dwarf_bench_tpu_torch.examples.lock_add\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -12,8 +12,11 @@ import torch
 
 from dwarf_bench_tpu.ops import csr_join as jcsr
 from dwarf_bench_tpu.ops import groupby as jgroupby
+from dwarf_bench_tpu.ops import join as jjoin
 from dwarf_bench_tpu.ops import sort as jsort
-from dwarf_bench_tpu_torch.ops import csr_join, groupby, sort
+from dwarf_bench_tpu.ops.chunk_stats import chunk_stats_xla as jchunk_stats_xla
+from dwarf_bench_tpu_torch.ops import csr_join, groupby, join, sort
+from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats_xla
 
 
 def _t(a):
@@ -206,3 +209,94 @@ def test_dense_host_checks(a, b):
     b = np.array(b, np.uint32)
     assert csr_join.dense_applicable(a, b) == jcsr.dense_applicable(a, b)
     assert csr_join.dense_hi_rows(a, b) == jcsr.dense_hi_rows(a, b)
+
+
+# -- the JAX package's names that parallel/ and its call sites use ---------
+
+# the values each JAX engine is exact for: f32 one-hot tiles of 1024 rows
+# below 2^24 a partial, bf16 planes below 2^14, the scatter for any
+_ENGINE_VMAX = {"groupby_sum_matmul": 10000, "groupby_sum_matmul_bf16":
+                (1 << 14) - 1, "groupby_sum_scatter": (1 << 32) - 1}
+
+
+@pytest.mark.parametrize("name", sorted(_ENGINE_VMAX))
+@pytest.mark.parametrize("G", [64, 4096, 5000])
+def test_groupby_engine_names(rng, name, G):
+    n = 4096
+    keys = rng.integers(0, G, n).astype(np.uint32)
+    vals = rng.integers(0, _ENGINE_VMAX[name], n, endpoint=True
+                        ).astype(np.uint32)
+    ref = np.asarray(getattr(jgroupby, name)(jnp.asarray(keys),
+                                            jnp.asarray(vals), G))
+    got = getattr(groupby, name)(_t(keys), _t(vals), G)
+    assert np.array_equal(_u32(got), ref)
+
+
+@pytest.mark.parametrize("G,khi", [(64, 64), (5000, 5100), (1 << 16, 1 << 16),
+                                   (1, 1)])
+def test_groupby_sum_packed_sort(rng, G, khi):
+    """Keys and values below 2^16; keys past G (5000 with keys to 5099)
+    drop out of the compaction's G slots or the scatter in both."""
+    n = 30000
+    keys = rng.integers(0, khi, n).astype(np.uint32)
+    vals = rng.integers(0, 1 << 16, n).astype(np.uint32)
+    ref = np.asarray(jgroupby.groupby_sum_packed_sort(
+        jnp.asarray(keys), jnp.asarray(vals), G))
+    got = groupby.groupby_sum_packed_sort(_t(keys), _t(vals), G)
+    assert np.array_equal(_u32(got), ref)
+    ok = keys < G
+    assert np.array_equal(ref, jgroupby.groupby_oracle(keys[ok], vals[ok], G))
+
+
+def test_columns_to_rows_and_back(rng):
+    cols = [rng.integers(0, 1 << 32, 257, dtype=np.uint64).astype(np.uint32)
+            for _ in range(3)]
+    ref = jjoin.columns_to_rows(*cols)
+    assert join.columns_to_rows(*(_t(c) for c in cols)) == ref
+    assert join.columns_to_rows(*cols) == ref
+    for g, r in zip(join.rows_to_columns(ref, 3),
+                    jjoin.rows_to_columns(ref, 3)):
+        assert g.dtype == torch.int32 and np.array_equal(_u32(g), r)
+    empty = join.rows_to_columns([], 2)
+    assert [tuple(c.shape) for c in empty] == [(0,), (0,)]
+    assert [c.shape for c in jjoin.rows_to_columns([], 2)] == [(0,), (0,)]
+
+
+@pytest.mark.parametrize("thr", [5, 5000, -(2**31) + 100, 2**31 - 1])
+def test_chunk_stats_xla(rng, thr):
+    x2 = rng.integers(-(2**31), 2**31, (300, 128), dtype=np.int64
+                      ).astype(np.int32)
+    x2[::7] = rng.integers(1, 10000, (x2[::7].shape), endpoint=True)
+    es, eb = jchunk_stats_xla(jnp.asarray(x2), thr)
+    gs, gb = chunk_stats_xla(torch.from_numpy(x2), thr)
+    assert np.array_equal(gs.numpy(), np.asarray(es))
+    assert np.array_equal(gb.numpy(), np.asarray(eb))
+
+
+@pytest.mark.parametrize("n,empty", [(4096, True), (1 << 16, False)])
+def test_build_dense_with_row_ids(rng, n, empty):
+    """Global row ids (as the distributed join passes them, and past 2^31
+    as uint32) in the id_buffer: every other field exact, and each key's
+    ids the same set (the JAX pair sort is unstable)."""
+    a = _a_keys(rng, n, empty)
+    ids = (np.uint64(3 << 30) + rng.permutation(n).astype(np.uint64)
+           ).astype(np.uint32)
+    ref = jcsr.build_dense(jnp.asarray(a), row_ids=jnp.asarray(ids))
+    got = csr_join.build_dense(_t(a), row_ids=_t(ids))
+    for name in csr_join.DenseCsrTable._fields:
+        if name == "id_buffer":
+            continue
+        r = np.asarray(getattr(ref, name))
+        g = getattr(got, name).numpy()
+        if r.dtype == np.uint32:
+            g = g.view(np.uint32)
+        assert np.array_equal(r, g), name
+    r_ids, g_ids = np.asarray(ref.id_buffer), _u32(got.id_buffer)
+    counts, pos = np.asarray(ref.counts), np.asarray(ref.pos)
+    for k in np.flatnonzero(counts):
+        seg = slice(pos[k], pos[k] + counts[k])
+        assert np.array_equal(np.sort(g_ids[seg]), np.sort(r_ids[seg]))
+    # the port's sort is stable: ids in row order within a key
+    valid = a != 0xFFFFFFFF
+    order = np.argsort(np.where(valid, a, 0xFFFFFFFF), kind="stable")
+    assert np.array_equal(g_ids[: valid.sum()], ids[order][: valid.sum()])
