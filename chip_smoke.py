@@ -47,6 +47,10 @@ with nvcc, then:
      kernels and no memset for the scan's phase A (chunk_stats, cumsum);
      the three compactions run back to back on one stream and three times
      on each of two streams;
+     and, at the sweeps' largest size (2^27 rows), the hi80 histogram
+     (whose plan must store 32-bit copies), Radix's run-expansion cumsum
+     with an int carry, chunk_stats and scan_tail_streams over 2^20 chunks,
+     each against its twin and timed beside it;
   3. drives the dwarfs through the CLI entry point with ``--device=gpu``
      (Radix 2^22, GroupBy 2^22 with G=64, GroupBy 2^20 with G=2^16,
      JoinOmnisci 2^20, TwoPassScan, DPLScan and DPLScanCuda 2^24,
@@ -96,7 +100,18 @@ with nvcc, then:
      device time, beside the card); runs the dry run
      (``python -m dwarf_bench_tpu_torch.dryrun``) and Radix 2^22 through the
      CLI with ``--profile_dir``, whose trace must name the histogram kernel;
-  8. prints the kernels whose profiler time fell below their bound, one
+  8. runs the scripts of ``dwarf_bench_tpu_torch/scripts/`` on the card
+     (``phase_scripts``): every sweep grid (``scripts/sweeps.py``, the
+     JAX package's ``benchmark_*.sh``) at its largest size (2^27 rows for
+     the large grids) and its smallest, 2 iterations, each size a CLI
+     process that must exit 0 with every run valid, and ``report.py`` over
+     each CSV listing every size; the 50 %-hit hash harness at 2^24 in this
+     process; the scaling harness on a world of ``device_count()`` NCCL
+     ranks at 2^18 and 2^20 rows; the scaling model at 2^20 from the
+     card's rates; the release tar with the kernel library, whose entry
+     must run unpacked with nvcc hidden; the launches of these runs (read
+     from the CLI processes and the scaling ranks) are counted;
+  9. prints the kernels whose profiler time fell below their bound, one
      JSON line with each kernel's launches, error and times, and last the
      JSON line ``{"ok": true, "device": {...}}``.
 
@@ -1191,6 +1206,43 @@ def phase_kernels(dev):
             f"{mode} n=2^18+777 (part-filled block), out-of-range keys",
             fn, plain, t(rng.integers(-5, 64 + 5, odd)),
             t(rng.integers(i32min, i32max, odd, endpoint=True)))
+
+    # -- the sweeps' largest size, 2^27 rows (Radix and the scans at the
+    #    top of their grids): the count histogram with 32-bit copies, the
+    #    run-expansion cumsum, phase A and the scan tail over 2^20 chunks
+    big = 1 << 27
+    plan = hist_cuda.histogram_plan(80, big)
+    check(not hist_cuda._narrow(hist_cuda.HIST_THREADS, plan[0], big // 4),
+          f"histogram hi80 2^27: the plan {plan} keeps 16-bit copies")
+    x27 = make_random(big, seed=27)
+    k27 = t(x27 - 1)  # Radix's keys less their minimum
+    run("histogram", f"radix hi80 n=2^27, plan {plan}, 32-bit copies", h,
+        hp, k27, 80, timed=True, cost=keyed(big, 80 * 128), library=bincount,
+        cold=True, graph=True, library_graph=False)
+    del k27
+    counts27 = np.bincount(x27 - 1, minlength=80 * 128)
+    starts27 = np.cumsum(counts27) - counts27
+    s27 = t(np.bincount(np.minimum(starts27, big), minlength=big + 1)[:big])
+    run("cumsum", "radix expansion n=2^27, int carry", c, cp, s27, -1,
+        timed=True, cost=lambda res: (4 * (2 * big + 1), big),
+        library=torch_cumsum, cold=True, graph=True)
+    del s27
+    nch27 = big // 128
+    x2_27 = t(x27).view(nch27, 128)
+    del x27
+    run("chunk_stats", "nch=2^20 (2^27 rows, x<5)",
+        chunk_stats_cuda.chunk_stats, chunk_stats, x2_27, 5, view=pair,
+        timed=True, cost=lambda res: (4 * (big + 2 * nch27), 8 * big),
+        graph=True)
+    stat27, base27 = chunk_stats(x2_27, 5)
+    del x2_27
+    caps27 = (max(16384, big >> 10), max(512, big >> 15))  # ops/scan.py
+    run("scan_tail_streams", "nch=2^20 (2^27 x<5)",
+        scan_tail_cuda.scan_tail_streams,
+        scan_tail_cuda.scan_tail_streams_plain, stat27, base27, 5, *caps27,
+        view=tail(*caps27), timed=True,
+        cost=tail_cost(nch27, caps27[0]), cold=True, graph=True)
+    del stat27, base27
     return stats
 
 
@@ -2241,6 +2293,194 @@ def phase_parallel(dev):
     return launches
 
 
+# the kernels the scripts' runs must launch: Radix's (histogram, cumsum),
+# the scans' (phase A, the tail, the compactions, the emit), the hash
+# probes' merge (merge_bitonic, merge_fill, compact_mask), and the scaling
+# harness's dense join (histogram) and group-by (groupby_small)
+SCRIPT_KERNELS = ("histogram", "cumsum", "chunk_stats", "scan_tail_streams",
+                  "compact_mask", "emit_prefix", "merge_bitonic",
+                  "merge_fill", "groupby_small")
+
+
+def _script(args, timeout, env=None, cwd=None):
+    """Run ``python -m <args>``; the completed process (it must exit
+    0)."""
+    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                          text=True, timeout=timeout, env=env, cwd=cwd)
+    check(proc.returncode == 0, f"{' '.join(args)}: exit code "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return proc
+
+
+def sweep_grids(tmp):
+    """Every grid of ``scripts/sweeps.py`` on the card at its largest and
+    its smallest size, 2 iterations, each grid into its own directory,
+    three grids at a time (the times are not measurements: the grids share
+    the card); then ``scripts/report.py`` over each CSV, which must list
+    every size that ran. Returns the runs' launches."""
+    import collections
+    import contextlib
+    import glob
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dwarf_bench_tpu_torch.scripts import report, sweeps
+
+    def one(name):
+        grid = sweeps.GRIDS[name]
+        t = time.perf_counter()
+        done = sweeps.run_grid(name, os.path.join(tmp, name), ("gpu",),
+                               sizes=(max(grid.sizes), min(grid.sizes)),
+                               iterations=2, timeout=900)
+        return name, done, time.perf_counter() - t
+
+    launches = collections.Counter()
+    # the hash grid, the longest, first
+    order = sorted(sweeps.GRIDS, key=lambda g: g != "hash_large")
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        runs = list(pool.map(one, order))
+    for name, done, seconds in runs:
+        grid = sweeps.GRIDS[name]
+        want = {max(grid.sizes), min(grid.sizes)}
+        for (dwarf, _), sweep in done.items():
+            check(not sweep.failed, f"sweeps {name}: {sweep.failed}")
+            check(set(sweep.ran) == want and not sweep.skipped,
+                  f"sweeps {name} {dwarf}: ran {sweep.ran}, skipped "
+                  f"{sweep.skipped}")
+            launches.update(sweep.launches)
+        for csv in sorted(glob.glob(os.path.join(tmp, name, "*.csv"))):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = report.main([csv, "--column", "kernel_time_ms"])
+            text = buf.getvalue()
+            listed = {(line.split()[0], int(line.split()[1]))
+                      for line in text.splitlines()[1:]}
+            check(rc == 0 and listed == {("GPU", s * 4) for s in want},
+                  f"report {name} {os.path.basename(csv)}: {text}")
+            print(f"report {name} {os.path.basename(csv)}:\n{text}",
+                  end="", flush=True)
+        print(f"sweeps {name}: {seconds!r} s", flush=True)
+    return launches
+
+
+def phase_scripts(dev):
+    """The scripts of ``dwarf_bench_tpu_torch/scripts/`` on the card: every
+    sweep grid at its largest and smallest size, with the report over each
+    CSV; the 50 %-hit hash harness at 2^24 (both phases, 9 iterations,
+    validated on the device) in this process; the scaling harness on a
+    world of ``device_count()`` NCCL ranks at 2^18 and 2^20 rows (overflow
+    0), which writes the card's rates; the scaling model at 2^20 from them
+    (its byte tally on a gloo world of 8 CPU processes); and the release
+    tar with the kernel library, unpacked, whose entry must run with nvcc
+    hidden. Each step's seconds are printed; the launches of every step
+    but the release's are returned."""
+    import collections
+    import tarfile
+
+    from dwarf_bench_tpu_torch.ops import _build
+    from dwarf_bench_tpu_torch.scripts import hash_hit50, scaling
+
+    t0 = time.perf_counter()
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = sweep_grids(tmp)
+        t1 = time.perf_counter()
+        print(f"scripts: the sweeps took {t1 - t0!r} s", flush=True)
+
+        _build.reset_launches()
+        try:
+            found = hash_hit50.run(24, "all", dev, os.path.join(tmp, "h50"))
+        except hash_hit50.Hit50Failure as e:
+            raise SmokeFailure(f"hash_hit50: {e}") from e
+        launches.update({k: v for k, v in _build.LAUNCHES.items() if v})
+        check(set(found) == {"slab", "cuckoo"}, f"hash_hit50: {found}")
+        with open(os.path.join(tmp, "h50", "report_hash_hit50.csv")) as f:
+            rows = f.read().splitlines()[1:]
+        check(len(rows) == 2 * hash_hit50.ITERATIONS,
+              f"hash_hit50: {len(rows)} CSV rows")
+        for phase, part in (("slab", rows[:9]), ("cuckoo", rows[9:])):
+            kernel_ms = [float(r.split(",")[3]) for r in part]
+            print(f"hash_hit50 2^24 {phase}: rows/s "
+                  f"{[(1 << 24) / (t / 1e3) for t in kernel_ms]!r} ({card})",
+                  flush=True)
+        t2 = time.perf_counter()
+        print(f"scripts: hash_hit50 took {t2 - t1!r} s", flush=True)
+
+        rates = {}
+        for lg in (18, 20):
+            path = os.path.join(tmp, f"compute_{lg}.json")
+            proc = _script(["dwarf_bench_tpu_torch.scripts.scaling",
+                            "--device", "gpu", "--rows_per_chip",
+                            str(1 << lg), "--compute_json", path], 900)
+            lines = [json.loads(x) for x in proc.stdout.splitlines()
+                     if x.startswith("{")]
+            worlds = scaling.worlds_for(dev)
+            check(len(lines) == 5 * len(worlds) + (5 if len(worlds) > 1
+                                                   else 0),
+                  f"scaling 2^{lg}: {proc.stdout}")
+            with open(path) as f:
+                rates[lg] = json.load(f)
+            check(all(v > 0 for v in rates[lg]["rows_per_s"].values()),
+                  f"scaling 2^{lg}: {rates[lg]['rows_per_s']}")
+            launches.update(rates[lg]["launches"])
+            print(proc.stdout, end="", flush=True)
+            print(f"scaling 2^{lg} ({rates[lg]['card']}): world of one "
+                  f"rows/s {rates[lg]['rows_per_s']!r}", flush=True)
+        t3 = time.perf_counter()
+        print(f"scripts: scaling took {t3 - t2!r} s", flush=True)
+
+        proc = _script(["dwarf_bench_tpu_torch.scripts.scaling_model",
+                        "--rows-per-chip", str(1 << 20), "--compute_json",
+                        os.path.join(tmp, "compute_20.json"), "--out", tmp],
+                       900)
+        with open(os.path.join(tmp, "scaling_model.json")) as f:
+            mod = json.load(f)
+        check(len(mod["ops"]) == 6 and all(
+            set(op["projection"]) == {"8", "32", "256"}
+            for op in mod["ops"].values()), f"scaling_model: {mod}")
+        print(proc.stdout, end="", flush=True)
+        print(f"scaling_model: B_NVLINK {mod['B_NVLINK']!r}, B_IB "
+              f"{mod['B_IB']!r}, band x{mod['band']!r}", flush=True)
+        t4 = time.perf_counter()
+        print(f"scripts: scaling_model took {t4 - t3!r} s", flush=True)
+
+        dist_dir = os.path.join(tmp, "dist")
+        _script(["dwarf_bench_tpu_torch.scripts.release", "--kernels",
+                 "--out", dist_dir], 900)
+        tars = os.listdir(dist_dir)
+        check(len(tars) == 1, f"release: {tars}")
+        unpacked = os.path.join(tmp, "unpacked")
+        with tarfile.open(os.path.join(dist_dir, tars[0])) as tf:
+            tf.extractall(unpacked, filter="data")
+        root = os.path.join(unpacked, tars[0][: -len(".tar.gz")])
+        build = os.path.join(root, "dwarf_bench_tpu_torch", "build")
+        shipped = os.listdir(build)
+        check(len(shipped) == 1 and shipped[0].startswith("libdbt_kernels_"),
+              f"release: build/ holds {shipped}")
+        env = dict(os.environ, CUDA_HOME=os.path.join(tmp, "no_cuda"))
+        env["PATH"] = os.pathsep.join(
+            p for p in env.get("PATH", "").split(os.pathsep)
+            if p and not os.path.exists(os.path.join(p, "nvcc")))
+        env.pop("PYTHONPATH", None)
+        proc = subprocess.run([sys.executable, "-m",
+                               "dwarf_bench_tpu_torch.entry"],
+                              capture_output=True, text=True, timeout=300,
+                              env=env, cwd=root)
+        check(proc.returncode == 0 and "entry OK" in proc.stdout,
+              f"release: the unpacked entry failed: {proc.stderr[-3000:]}")
+        check(os.listdir(build) == shipped,
+              f"release: the unpacked tree built again: {os.listdir(build)}")
+        print(f"release: {tars[0]} unpacked, entry without nvcc: "
+              f"{proc.stdout.strip()}", flush=True)
+        print(f"scripts: release took {time.perf_counter() - t4!r} s",
+              flush=True)
+    for k in SCRIPT_KERNELS:
+        check(launches[k] > 0, f"scripts: kernel {k} was not launched")
+    print(f"launches in the scripts phase: {dict(launches)}", flush=True)
+    print(f"scripts phase: {time.perf_counter() - t0!r} s", flush=True)
+    return collections.Counter(launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2272,20 +2512,24 @@ def main() -> int:
     entry_launches = phase_entry(dev)
     t7 = time.perf_counter()
     parallel_launches = phase_parallel(dev)
+    t8 = time.perf_counter()
+    script_launches = phase_scripts(dev)
     print(f"phase seconds: kernels {t2 - t1!r}, dwarfs and ops "
           f"{t3 - t2!r}, library paths {t4 - t3!r}, front end "
           f"{t5 - t4!r}, bench {t6 - t5!r}, timers and entry "
-          f"{t7 - t6!r}, parallel {time.perf_counter() - t7!r}, whole "
-          f"script {time.perf_counter() - t0!r}", flush=True)
+          f"{t7 - t6!r}, parallel {t8 - t7!r}, scripts "
+          f"{time.perf_counter() - t8!r}, whole script "
+          f"{time.perf_counter() - t0!r}", flush=True)
     launches = {name: dwarf_launches[name] + library_launches[name]
                 + front_launches[name] + bench_launches[name]
                 + entry_launches[name] + parallel_launches[name]
+                + script_launches[name]
                 for name in KERNELS}
     for name in KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the "
                                   "dwarfs, the library paths, the front "
-                                  "end, the bench, the entry or the "
-                                  "distributed layer")
+                                  "end, the bench, the entry, the "
+                                  "distributed layer or the scripts")
         check(stats[name]["ms"] is not None, f"kernel {name} was not timed")
 
     print("device_ms below bound_ms (a trace lost kernels, or the inputs sat "

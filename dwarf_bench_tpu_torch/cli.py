@@ -1,7 +1,8 @@
 """CLI, the equivalent of the reference's ``dwarf_bench`` binary
 (main.cpp:13-101) and of ``dwarf_bench_tpu/cli.py``: positional dwarf name
 (or ``list``), ``--device``, multitoken ``--input_size``, ``--iterations``,
-``--report_path``, ``--groups_count``, ``--executors``, ``--profile_dir``.
+``--report_path``, ``--groups_count``, ``--executors``, ``--profile_dir``
+(and ``--print_launches``, the kernel launches of the run on stderr).
 GroupBy dwarfs get their options upgraded to GroupByRunOptions exactly like
 main.cpp:87-92 (name contains "GroupBy").
 
@@ -12,6 +13,7 @@ the exit code is then 1, so a failed run is not mistaken for a finished one.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 from .common.options import GroupByRunOptions, RunOptions, parse_device_type
@@ -87,6 +89,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="Write a torch.profiler trace of each run to this directory.",
     )
     p.add_argument(
+        "--print_launches",
+        action="store_true",
+        help="After the run, print the CUDA kernel launches it made to "
+        "stderr as 'launches: {json}' (the sweep runner reads them).",
+    )
+    p.add_argument(
         "--seed",
         type=int,
         default=0,
@@ -139,6 +147,12 @@ def main(argv=None) -> int:
     except Exception as e:  # main.cpp:97-99
         print(f"Caught exception: {e!r}", file=sys.stderr)
         return 1
+    if args.print_launches:
+        from .ops import _build
+
+        print("launches: " + json.dumps(
+            {k: v for k, v in _build.LAUNCHES.items() if v}),
+            file=sys.stderr)
     return 0
 
 

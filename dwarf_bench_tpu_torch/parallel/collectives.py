@@ -12,18 +12,53 @@ process group of one mesh dimension (``mesh.get_group(name)``).
     ``batch_isend_irecv``. A group of one rank sends nothing: the
     permutation of one is the identity, and gloo cannot send to its own
     rank (NCCL can).
+
+``record_collectives()`` tallies the bytes of these calls: each call inside
+it notes (kind, bytes), the kind by the HLO name of the JAX collective it
+stands for (``all-to-all``, ``all-gather``, ``all-reduce``,
+``collective-permute``) and the bytes those of its result on this rank (for
+``all_gather`` the stacked result), the measure the JAX package's scaling
+model reads from compiled HLO (scripts/scaling_model.py ``_shape_bytes``).
+Outside a recorder a call checks one name for None and notes nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator, List, Optional, Tuple
+
 import torch
 import torch.distributed as dist
+
+# the open recorder's list, None when no recorder is open
+_tally: Optional[List[Tuple[str, int]]] = None
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[List[Tuple[str, int]]]:
+    """A list that gathers (kind, result bytes) of every collective this
+    process calls until the block ends, in call order. One recorder is open
+    at a time."""
+    global _tally
+    if _tally is not None:
+        raise RuntimeError("record_collectives: a recorder is already open")
+    _tally = []
+    try:
+        yield _tally
+    finally:
+        _tally = None
+
+
+def _note(kind: str, result: torch.Tensor) -> None:
+    if _tally is not None:
+        _tally.append((kind, result.numel() * result.element_size()))
 
 
 def all_to_all(buf: torch.Tensor, group) -> torch.Tensor:
     buf = buf.contiguous()
     out = torch.empty_like(buf)
     dist.all_to_all_single(out, buf, group=group)
+    _note("all-to-all", out)
     return out
 
 
@@ -31,12 +66,15 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
-    return torch.stack(parts)
+    out = torch.stack(parts)
+    _note("all-gather", out)
+    return out
 
 
 def psum(t: torch.Tensor, group=None) -> torch.Tensor:
     out = t.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    _note("all-reduce", out)
     return out
 
 
@@ -44,6 +82,7 @@ def ring_next(t: torch.Tensor, group) -> torch.Tensor:
     """Each rank's ``t`` moves to the next rank of ``group``: the result is
     the previous rank's."""
     n = dist.get_world_size(group)
+    _note("collective-permute", t)
     if n == 1:
         return t
     me = dist.get_rank(group)

@@ -36,8 +36,10 @@ against the gather before the emit, and ``filter_sparse`` at 2^24 x < 5;
 (group ``lock``) the card's L2 round trip of an atomic (global timer and
 CUDA events) and ``grid_accumulate`` at 64, 2^12 and 2^16 blocks with the
 time an acquisition; (group ``diag``) ``_gb_diag_kernel_factory`` in its
-three modes at 2^22 rows; each with the kernels and memsets a call puts on
-the card (``device_ops``). ``--only`` runs the named groups (none: ``--only
+three modes at 2^22 rows; (group ``large``) the sweeps' 2^27 rows: the
+count histogram at hi80, the run-expansion cumsum, phase A, the scan tail
+over 2^20 chunks and ``filter_sparse`` at x < 5; each with the kernels and
+memsets a call puts on the card (``device_ops``). ``--only`` runs the named groups (none: ``--only
 ""``).
 ``--sweep`` times the weighted histogram under every (cluster, copies) plan
 and the count histogram under every (blocks, mergers) plan at the
@@ -507,6 +509,66 @@ def scan_lines(root_label: str, dev, emit) -> None:
         del xd, x2, stat, base
 
 
+def large_lines(root_label: str, dev, emit) -> None:
+    """The sweeps' largest size, 2^27 rows (512 MB of int32 in [1,
+    10000]): the count histogram at Radix's hi80 (a block counts more than
+    2^16 keys, so its copies are 32-bit) against ``torch.bincount``, the
+    run-expansion cumsum over 2^27 values against ``torch.cumsum``, phase A
+    and the scan tail over 2^20 chunks and ``filter_sparse`` at x < 5, each
+    with the kernels and memsets a call and the bound of the bytes it must
+    move."""
+    from dwarf_bench_tpu_torch.ops import (
+        chunk_stats_cuda,
+        cumsum_cuda,
+        hist_cuda,
+        scan,
+        scan_tail_cuda,
+    )
+    from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
+
+    rng = np.random.default_rng(27)
+    n = 1 << 27
+    nbins = 80 * 128
+    x = rng.integers(1, 10000, n, endpoint=True).astype(np.int32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def case(label, fn, args, nbytes=None, graph=True, **extra):
+        _case(root_label, emit, label, fn, args, nbytes, graph, **extra)
+
+    k = t(x - 1)  # Radix's keys less their minimum
+    case("histogram hi80 2^27 (Radix)", hist_cuda.histogram, (k, 80),
+         4 * (n + nbins), copies_bytes=hist_cuda.merge_bytes(80, n))
+    case("torch.bincount hi80 2^27",
+         lambda v: torch.bincount(v, minlength=nbins), (k,), graph=False)
+    del k
+    counts = np.bincount(x - 1, minlength=nbins)
+    starts = np.cumsum(counts) - counts
+    s = t(np.bincount(np.minimum(starts, n), minlength=n + 1)[:n])
+    case("cumsum 2^27 int carry (Radix's run expansion)", cumsum_cuda.cumsum,
+         (s, -1), 8 * n)
+    case("torch.cumsum 2^27",
+         lambda v: torch.cumsum(v, 0, dtype=torch.int32), (s,), 8 * n)
+    del s
+    xd = t(x)
+    nch = n // 128
+    x2 = xd.view(nch, 128)
+    case("phase A 2^27 x<5", chunk_stats_cuda.chunk_stats, (x2, 5),
+         4 * (n + 2 * nch))
+    stat, base = chunk_stats(x2, 5)
+    caps = (max(16384, n >> 10), max(512, n >> 15))
+    res = scan_tail_cuda.scan_tail_streams_plain(stat, base, 5, *caps)
+    case(f"scan_tail_streams {nch} chunks (2^27 x<5)",
+         scan_tail_cuda.scan_tail_streams, (stat, base, 5, *caps),
+         4 * (2 * nch + caps[0] + int(res[4]) + 2 * int(res[5]) + 2))
+    hits = int((x < 5).sum())
+    sparse = scan.sparse_caps_ok(x, 5)
+    case("filter_sparse 2^27 x<5",
+         lambda v: scan.filter_sparse(v, 5, assume_sparse=sparse), (xd,),
+         4 * (n + hits), graph=sparse, sparse=sparse, hits=hits)
+
+
 def _takes_index(emit_prefix) -> bool:
     """Whether a checkout's emit_prefix gathers by an index."""
     import inspect
@@ -896,7 +958,7 @@ def main(argv=None) -> int:
     parser.add_argument("--host", action="store_true")
     parser.add_argument("--only", default="core,compaction,histogram,scan",
                         help="case groups, of core, compaction, histogram, "
-                        "scan, emit, lock and diag")
+                        "scan, emit, lock, diag and large")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: CUDA is not available", file=sys.stderr)
@@ -913,7 +975,8 @@ def main(argv=None) -> int:
     label = args.label or args.root
     groups = {"core": case_lines, "compaction": compaction_lines,
               "histogram": histogram_lines, "scan": scan_lines,
-              "emit": emit_lines, "lock": lock_lines, "diag": diag_lines}
+              "emit": emit_lines, "lock": lock_lines, "diag": diag_lines,
+              "large": large_lines}
     for group in filter(None, args.only.split(",")):
         groups[group](label, dev, emit)
     sweeps = {"histogram": histogram_sweep_lines, "weighted": sweep_lines}

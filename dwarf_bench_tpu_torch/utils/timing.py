@@ -299,6 +299,21 @@ def time_amortized(fn: Callable, *args, k: int = 8, warmup: int = 1) -> float:
     The depths deepen until the implied spread between them is at least
     0.2 s (2 ms on the CPU), or until ``DBT_TIMING_BUDGET_S`` (default 6 s)
     of wall time is spent; the best slope so far is returned then."""
+    return _amortized(fn, args, k, warmup, None)
+
+
+def time_amortized_world(fn: Callable, *args,
+                         agree: Callable[[list], list], k: int = 8,
+                         warmup: int = 1) -> float:
+    """``time_amortized`` of a call that runs collectives, on every rank of
+    a world: ``agree`` maps this rank's [t1, t2, seconds spent] at each
+    depth to the world's (each the largest over the ranks,
+    ``scripts/scaling.py``), so every rank deepens alike, calls ``fn`` as
+    often as the others, and returns the world's slope."""
+    return _amortized(fn, args, k, warmup, agree)
+
+
+def _amortized(fn, args, k, warmup, agree) -> float:
     dev = _first_device(args)
     for _ in range(max(warmup, 1)):
         _queue_k(fn, args, 1, dev)
@@ -311,12 +326,15 @@ def time_amortized(fn: Callable, *args, k: int = 8, warmup: int = 1) -> float:
     for _ in range(6):
         t1 = min(_queue_k(fn, args, k1, dev) for _ in range(2))
         t2 = min(_queue_k(fn, args, k2, dev) for _ in range(2))
+        spent = time.perf_counter() - t_begin
+        if agree is not None:
+            t1, t2, spent = agree([t1, t2, spent])
         slope = (t2 - t1) / (k2 - k1)
         if slope >= 1e-7 and slope * (k2 - k1) >= min_diff:
             return slope
         if k2 >= _MAX_DEPTH:
             break
-        if time.perf_counter() - t_begin > t_budget:
+        if spent > t_budget:
             break
         # t2 / k2 bounds one call from above (one fence / k2 in it), a
         # degenerate slope from below: size the next depths by the larger

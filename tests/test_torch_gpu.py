@@ -1822,3 +1822,76 @@ def test_ops_layer_names_on_the_card(cuda, rng):
     got = csr_join.build_dense(a.cuda(), row_ids=ids.cuda())
     for g, e in zip(got, csr_join.build_dense(a, row_ids=ids)):
         assert torch.equal(g.cpu(), e)
+
+
+# -- the scripts (dwarf_bench_tpu_torch/scripts/) ------------------------------
+
+def test_hash_hit50_on_the_card(cuda, tmp_path):
+    """The 50 %-hit harness at 2^20 on the card: both phases validated on
+    the device (it raises otherwise), the probes through the merge engine,
+    9 GPU rows a phase."""
+    from dwarf_bench_tpu_torch.scripts import hash_hit50
+
+    before = dict(_build.LAUNCHES)
+    found = hash_hit50.run(20, "all", cuda, str(tmp_path))
+    for k in ("merge_bitonic", "merge_fill", "compact_mask"):
+        assert _build.LAUNCHES[k] > before[k]
+    half = 1 << 19
+    for f in found.values():
+        assert f.is_cuda and bool(f[:half].all()) and not bool(f[half:].any())
+    rows = (tmp_path / "report_hash_hit50.csv").read_text().splitlines()[1:]
+    assert len(rows) == 18
+    assert all(r.startswith(f"GPU,{4 << 20},") for r in rows)
+
+
+def test_scaling_world_of_one_on_the_card(cuda, tmp_path):
+    """scaling.py on an NCCL world of one rank at 2^16 rows: the five ops
+    timed with zero overflow (a rank raises otherwise), the card's rates
+    and the rank's launches in the compute file."""
+    import json
+
+    path = tmp_path / "compute.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "dwarf_bench_tpu_torch.scripts.scaling",
+         "--device", "gpu", "--rows_per_chip", str(1 << 16),
+         "--compute_json", str(path)],
+        capture_output=True, text=True, timeout=600,
+        cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    assert [x["op"] for x in lines] == ["dist_groupby", "dist_csr_join",
+                                        "dist_filter", "dist_csr_join_ring",
+                                        "dist_sort"]
+    got = json.loads(path.read_text())
+    assert got["device"]["platform"] == "gpu" and got["card"]
+    assert all(v > 0 for v in got["rows_per_s"].values())
+    assert got["launches"]["histogram"] > 0
+    assert got["launches"]["groupby_small"] > 0
+
+
+def test_release_kernels_runs_unpacked_without_nvcc(cuda, tmp_path):
+    """release.py --kernels ships the built library; the unpacked tree's
+    entry loads it with nvcc hidden and builds nothing."""
+    import os
+    import tarfile
+
+    from dwarf_bench_tpu_torch.scripts import release
+
+    tar = release.release(str(tmp_path / "dist"), kernels=True)
+    with tarfile.open(tar) as tf:
+        tf.extractall(tmp_path / "x", filter="data")
+    root = tmp_path / "x" / os.path.basename(tar)[: -len(".tar.gz")]
+    build = root / "dwarf_bench_tpu_torch" / "build"
+    shipped = sorted(os.listdir(build))
+    assert len(shipped) == 1 and shipped[0].startswith("libdbt_kernels_")
+    env = dict(os.environ, CUDA_HOME=str(tmp_path / "no_cuda"))
+    env["PATH"] = os.pathsep.join(
+        p for p in env.get("PATH", "").split(os.pathsep)
+        if p and not os.path.exists(os.path.join(p, "nvcc")))
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-m", "dwarf_bench_tpu_torch.entry"],
+                          capture_output=True, text=True, timeout=300,
+                          env=env, cwd=root)
+    assert proc.returncode == 0 and "entry OK" in proc.stdout, proc.stderr
+    assert sorted(os.listdir(build)) == shipped

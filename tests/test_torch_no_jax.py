@@ -57,6 +57,9 @@ def test_import_loads_no_jax():
         "import dwarf_bench_tpu_torch.parallel.collectives\n"
         "import dwarf_bench_tpu_torch.examples.bench_usage\n"
         "import dwarf_bench_tpu_torch.examples.vadd, dwarf_bench_tpu_torch.examples.lock_add\n"
+        "import dwarf_bench_tpu_torch.scripts.report, dwarf_bench_tpu_torch.scripts.sweeps\n"
+        "import dwarf_bench_tpu_torch.scripts.hash_hit50, dwarf_bench_tpu_torch.scripts.release\n"
+        "import dwarf_bench_tpu_torch.scripts.scaling, dwarf_bench_tpu_torch.scripts.scaling_model\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dwarf_bench_tpu'))\n"
         "assert not bad, bad\n"
