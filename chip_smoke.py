@@ -25,7 +25,10 @@ with nvcc, then:
      and their library
      calls are also timed with the L2 flushed before each call, and
      merge_bitonic, merge_fill, reduce_sum, vadd and histogram as replays
-     of a captured CUDA graph;
+     of a captured CUDA graph; groupby_small both ways at G = 64 and at
+     GroupByLocal's G = 4096 (64 executors x 64) over 2^22 rows, on one
+     hot key and on a view off 4 bytes, and once under CUDA's sync debug
+     mode;
      filter, compact_mask and scan_tail_streams both ways, compact_mask also
      at the merge probe's 2^25 rows x 2 columns and x 1 (membership) and at
      the CSR build's 2^20 x 2; a profiler time below the bound is flagged
@@ -41,8 +44,9 @@ with nvcc, then:
      (3), one kernel and no memset for merge_fill in each mode, reduce_sum,
      vadd (aligned or not), compact_mask (1-3 columns), filter,
      scan_tail_streams, the histogram (hi80 2^22, hi128 2^20),
-     grid_accumulate (64 and 2^16 blocks, with the time an acquisition) and
-     gb_diag in each mode (also timed cold and as graph replays),
+     grid_accumulate (64 and 2^16 blocks, with the time an acquisition),
+     groupby_small (G = 64, 2^22 rows) and gb_diag in each mode (also
+     timed cold and as graph replays),
      and two
      kernels and no memset for the scan's phase A (chunk_stats, cumsum);
      the three compactions run back to back on one stream and three times
@@ -544,7 +548,40 @@ def phase_kernels(dev):
     gb_k, gb_v = (t(make_random(1 << 22, 0, 63, seed=3)),
                   t(make_random(1 << 22, seed=4)))
     run("groupby_small", "G=64 n=2^22", g, gp, gb_k, gb_v, 64, timed=True,
-        cost=keyed(1 << 22, 64, 2), library=index_add(64))
+        cost=keyed(1 << 22, 64, 2), library=index_add(64), cold=True,
+        graph=True)
+    ops = device_ops(g, gb_k, gb_v, 64)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"kernel groupby_small [G=64 n=2^22]: kernels per call {ops[0]!r}, "
+          f"memsets {ops[1]!r}, plan "
+          f"{groupby_cuda.groupby_plan(64, 1 << 22, sms)}", flush=True)
+    check(ops == (1, 0), f"groupby_small: {ops} kernels and memsets a call, "
+                         "expected 1 and 0")
+    sync(g(gb_k, gb_v, 64))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_dbg = g(gb_k, gb_v, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(torch.equal(got_dbg, gp(gb_k, gb_v, 64)),
+          "groupby_small under sync debug mode: differs from its twin")
+    print("kernel groupby_small [G=64 under sync debug mode error]: no host "
+          "copy or sync, exact", flush=True)
+    # GroupByLocal's 64 executors x G = 64: key (row // 2^16) * 64 + k
+    local_k = t((np.arange(1 << 22) // (1 << 16)) * 64
+                + make_random(1 << 22, 0, 63, seed=5))
+    run("groupby_small", "G=4096 n=2^22 (GroupByLocal 64 x 64)", g, gp,
+        local_k, gb_v, 4096, timed=True, cost=keyed(1 << 22, 4096, 2),
+        library=index_add(4096), cold=True, graph=True)
+    run("groupby_small", "G=64 n=2^22, one hot key", g, gp,
+        t(np.full(1 << 22, 17)), gb_v, 64, timed=True,
+        cost=keyed(1 << 22, 64, 2), library=index_add(64), cold=True,
+        graph=True)
+    run("groupby_small", "G=64 n=2^22 - 1, view off 4 bytes", g, gp,
+        gb_k[1:], gb_v[1:], 64, timed=True, cost=keyed((1 << 22) - 1, 64, 2),
+        cold=True, graph=True)
+    run("groupby_small", "G=64 n=2^22 - 1, keys off 4 bytes, values not", g,
+        gp, gb_k[1:], gb_v[:-1], 64)
     run("groupby_small", "G=4096 n=1000003", g, gp,
         t(rng.integers(0, 4096, 1_000_003)),
         t(rng.integers(1, 10000, 1_000_003)), 4096)

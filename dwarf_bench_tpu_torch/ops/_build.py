@@ -56,7 +56,8 @@ _SIGNATURES = {
     "dbt_weighted_histogram": (
         [_P, _P, _I64, _P, _I32, _I32, _I32, _P, _P], ctypes.c_int),
     "dbt_weighted_histogram_max_clusters": ([_I32, _I32], ctypes.c_int),
-    "dbt_groupby_small": ([_P, _P, _I64, _P, _I32, _P], ctypes.c_int),
+    "dbt_groupby_small": (
+        [_P, _P, _I64, _P] + [_I32] * 7 + [_P, _I64, _P], ctypes.c_int),
     "dbt_cumsum": ([_P, _I64, _P, _I32, _P, _P, _P], ctypes.c_int),
     "dbt_cumsum_scratch": ([_I64], _I64),
     "dbt_compact_scratch": ([_I64, _I32], _I64),

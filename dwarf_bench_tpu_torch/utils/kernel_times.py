@@ -36,14 +36,18 @@ against the gather before the emit, and ``filter_sparse`` at 2^24 x < 5;
 (group ``lock``) the card's L2 round trip of an atomic (global timer and
 CUDA events) and ``grid_accumulate`` at 64, 2^12 and 2^16 blocks with the
 time an acquisition; (group ``diag``) ``_gb_diag_kernel_factory`` in its
-three modes at 2^22 rows; (group ``large``) the sweeps' 2^27 rows: the
+three modes at 2^22 rows; (group ``groupby``) ``groupby_cuda.groupby_small``
+at G = 64 and 4096 (GroupByLocal's keys and uniform keys) over 2^22 rows,
+on one hot key and on a view off 4 bytes, against ``index_add_`` and
+``reduce_sum`` over the same 33.6 MB; (group ``large``) the sweeps' 2^27 rows: the
 count histogram at hi80, the run-expansion cumsum, phase A, the scan tail
 over 2^20 chunks and ``filter_sparse`` at x < 5; each with the kernels and
 memsets a call puts on the card (``device_ops``). ``--only`` runs the named groups (none: ``--only
 ""``).
 ``--sweep`` times the weighted histogram under every (cluster, copies) plan
 and the count histogram under every (blocks, mergers) plan at the
-main-path shapes and ``--host`` breaks one launch's host time down over
+main-path shapes (``--sweep groupby``: groupby_small under every plan of
+its two loops) and ``--host`` breaks one launch's host time down over
 10^4 calls; ``--sweep`` needs the newer checkout. Prints one JSON object a
 line, each with the card's name and power limit.
 
@@ -634,6 +638,55 @@ def diag_lines(root_label: str, dev, emit) -> None:
               mv._gb_diag_kernel_factory(mode), (k, v), 8 * read + 4 * 64)
 
 
+def groupby_inputs(dev):
+    """The group-by shapes at 2^22 rows, values in [1, 10000]: the bench's
+    G = 64 (keys in [0, 64)); GroupByLocal's 64 executors x G = 64 (keys
+    ``(row // 2^16) * 64 + k``, k in [0, 64), 4096 partial groups); G =
+    4096 with keys in [0, 4096); one hot key at G = 64. (label, keys,
+    values, G)."""
+    rng = np.random.default_rng(9)
+    n = 1 << 22
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    k64 = rng.integers(0, 64, n)
+    v = t(rng.integers(1, 10000, n, endpoint=True))
+    local = (np.arange(n) // (n // 64)) * 64 + rng.integers(0, 64, n)
+    return [("G=64 2^22", t(k64), v, 64),
+            ("G=4096 2^22 (GroupByLocal 64 x 64)", t(local), v, 4096),
+            ("G=4096 2^22 uniform keys", t(rng.integers(0, 4096, n)), v,
+             4096),
+            ("G=64 2^22, one hot key", t(np.full(n, 17)), v, 64)]
+
+
+def groupby_lines(root_label: str, dev, emit) -> None:
+    """groupby_small at its shapes (``groupby_inputs``) and on a view off
+    4 bytes, with the kernels and memsets a call and the bound of the keys
+    and values read and the sums written; ``index_add_`` into zeros (the
+    library call) at G = 64 and 4096; and ``reduce_sum`` over 2^23 values,
+    the same 33.6 MB read as one column, for the card's floor."""
+    from dwarf_bench_tpu_torch.ops import groupby_cuda, reduce_cuda
+
+    def index_add(k, v, g):
+        return torch.zeros(g, dtype=torch.int32, device=dev).index_add_(
+            0, k, v)
+
+    shapes = groupby_inputs(dev)
+    k, v = shapes[0][1], shapes[0][2]
+    shapes.append(("G=64 2^22 - 1, view off 4 bytes", k[1:], v[1:], 64))
+    for label, k, v, g in shapes:
+        nbytes = 8 * k.numel() + 4 * g
+        _case(root_label, emit, f"groupby_small {label}",
+              groupby_cuda.groupby_small, (k, v, g), nbytes)
+        if "hot" not in label and "view" not in label:
+            _case(root_label, emit, f"index_add_ {label}", index_add,
+                  (k, v, g), nbytes)
+    x = torch.cat([shapes[0][1], shapes[0][2]])
+    _case(root_label, emit, "reduce_sum 2^23 (33.6 MB, one column)",
+          reduce_cuda.reduce_sum, (x,), 4 * x.numel())
+
+
 LOCK_STEPS = (64, 1 << 12, 1 << 16)
 
 
@@ -819,6 +872,36 @@ def sweep_lines(dev, emit) -> None:
                       "cold_ms": cold_ms(fn, k, v, k=10)})
 
 
+def groupby_sweep_lines(dev, emit) -> None:
+    """groupby_small under each plan (loop, blocks an SM, loads a thread,
+    tables: one, four, and as many as the rule or the shared budget gives)
+    at the shapes of ``groupby_inputs``; the wrapper's own plan is
+    marked."""
+    from dwarf_bench_tpu_torch.ops import groupby_cuda as gc
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    choices = [dict(design="vector", blocks_per_sm=b, depth=d)
+               for d in gc.VECTOR_DEPTHS for b in (1, 2)]
+    choices.append(dict(design="scalar", blocks_per_sm=2))
+    for label, k, v, g in groupby_inputs(dev):
+        n = k.numel()
+        exp = gc.groupby_small_plain(k, v, g)
+        wrapper = gc.groupby_plan(g, n, sms)
+        plans = [wrapper]
+        for choice in choices:
+            for tables in (1, 4, None, gc.GROUPBY_WARPS):
+                plan = gc.groupby_plan(g, n, sms, tables=tables, **choice)
+                if plan not in plans:
+                    plans.append(plan)
+        for plan in plans:
+            fn = (lambda a, b, p=plan: gc.launch_groupby(a, b, g, p))
+            ok = torch.equal(fn(k, v), exp)
+            emit({"sweep": f"groupby_small {label}", **plan._asdict(),
+                  "ok": ok, "wrapper_plan": plan == wrapper,
+                  "graph_ms": graph_ms(fn, k, v),
+                  "cold_ms": cold_ms(fn, k, v, k=10)})
+
+
 def host_lines(dev, emit) -> None:
     """Host seconds of one call of each piece of a launch, over 10^4 calls
     at 4096 rows (so the card keeps up with the host)."""
@@ -828,6 +911,7 @@ def host_lines(dev, emit) -> None:
         compact_cuda,
         cumsum_cuda,
         filter_cuda,
+        groupby_cuda,
         hist_cuda,
         lock_add_cuda,
         reduce_cuda,
@@ -859,6 +943,7 @@ def host_lines(dev, emit) -> None:
             pass
 
     k = torch.from_numpy(np.arange(n, dtype=np.int32) % 65536).to(dev)
+    k64 = k % 64
     carry = torch.full((1,), -1, dtype=torch.int32, device=dev)
     rscratch = _build.stream_scratch("reduce_sum", dev,
                                      reduce_cuda.SCRATCH_WORDS)
@@ -898,6 +983,11 @@ def host_lines(dev, emit) -> None:
          lambda: torch.cumsum(x, 0, dtype=torch.int32)),
         ("weighted_histogram wrapper hi512",
          lambda: hist_cuda.weighted_histogram(k, x, 512)),
+        ("groupby_small wrapper G=64",
+         lambda: groupby_cuda.groupby_small(k64, x, 64)),
+        ("zeros + index_add_ 64 bins",
+         lambda: torch.zeros(64, dtype=torch.int32, device=dev)
+         .index_add_(0, k64, x)),
         ("zeros + index_add_ 65536 bins",
          lambda: torch.zeros(65536, dtype=torch.int32, device=dev)
          .index_add_(0, k, x)),
@@ -953,12 +1043,12 @@ def main(argv=None) -> int:
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
     parser.add_argument("--label", default=None)
     parser.add_argument("--sweep", nargs="?", const="histogram,weighted",
-                        default="", help="plan sweeps, of histogram and "
-                        "weighted")
+                        default="", help="plan sweeps, of histogram, "
+                        "weighted and groupby")
     parser.add_argument("--host", action="store_true")
     parser.add_argument("--only", default="core,compaction,histogram,scan",
                         help="case groups, of core, compaction, histogram, "
-                        "scan, emit, lock, diag and large")
+                        "scan, emit, lock, diag, groupby and large")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: CUDA is not available", file=sys.stderr)
@@ -976,10 +1066,11 @@ def main(argv=None) -> int:
     groups = {"core": case_lines, "compaction": compaction_lines,
               "histogram": histogram_lines, "scan": scan_lines,
               "emit": emit_lines, "lock": lock_lines, "diag": diag_lines,
-              "large": large_lines}
+              "groupby": groupby_lines, "large": large_lines}
     for group in filter(None, args.only.split(",")):
         groups[group](label, dev, emit)
-    sweeps = {"histogram": histogram_sweep_lines, "weighted": sweep_lines}
+    sweeps = {"histogram": histogram_sweep_lines, "weighted": sweep_lines,
+              "groupby": groupby_sweep_lines}
     for name in filter(None, args.sweep.split(",")):
         sweeps[name](dev, emit)
     if args.host:

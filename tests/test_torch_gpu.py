@@ -302,6 +302,150 @@ def test_groupby_small(cuda, rng, num_groups):
                        groupby_cuda.groupby_small_plain(k, v, num_groups))
 
 
+def _groupby_input(rng, n, num_groups, device):
+    """Keys in [-3, G + 3) with the int32 extremes at the front (negative
+    keys and keys >= G are dropped), values any int32."""
+    k = _t(rng.integers(-3, num_groups + 3, n), device)
+    k[: min(n, 3)] = torch.tensor([-(2**31), 2**31 - 1, num_groups][: min(n, 3)])
+    v = _t(rng.integers(0, 2**32, n, dtype=np.uint64), device)
+    return k, v
+
+
+@pytest.mark.parametrize("num_groups", [1, 20, 64, 4096])
+@pytest.mark.parametrize("n", [1, 3, 4097, (1 << 22) + 3])
+def test_groupby_small_bit_exact(cuda, rng, num_groups, n):
+    k, v = _groupby_input(rng, n, num_groups, cuda)
+    assert torch.equal(groupby_cuda.groupby_small(k, v, num_groups),
+                       groupby_cuda.groupby_small_plain(k, v, num_groups))
+
+
+@pytest.mark.parametrize("k_off,v_off", [(1, 1), (2, 2), (3, 3), (1, 0),
+                                         (0, 3), (2, 1)])
+@pytest.mark.parametrize("num_groups", [64, 4096])
+def test_groupby_small_misaligned_views(cuda, rng, k_off, v_off, num_groups):
+    """Views off 4-12 bytes: equal offsets peel their head rows, unequal
+    ones take the scalar loop."""
+    n = (1 << 20) + 7
+    k, v = _groupby_input(rng, n + 3, num_groups, cuda)
+    kv, vv = k[k_off: k_off + n], v[v_off: v_off + n]
+    plan = groupby_cuda.groupby_plan(num_groups, n, 132, k_off, v_off)
+    assert (plan.design == "scalar") == (k_off != v_off)
+    assert torch.equal(groupby_cuda.groupby_small(kv, vv, num_groups),
+                       groupby_cuda.groupby_small_plain(kv, vv, num_groups))
+
+
+@pytest.mark.parametrize("design", groupby_cuda.DESIGNS)
+@pytest.mark.parametrize("num_groups", [1, 64, 4096])
+def test_groupby_small_every_design(cuda, rng, design, num_groups):
+    """Each loop under its default plan, at 2^22 + 3 rows and at 4097 (one
+    block), from an aligned base and a view off 4 bytes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in ((1 << 22) + 3, 4097):
+        k, v = _groupby_input(rng, n + 1, num_groups, cuda)
+        for off in (0, 1):
+            kv, vv = k[off: off + n], v[off: off + n]
+            plan = groupby_cuda.groupby_plan(num_groups, n, sms, off, off,
+                                             design=design)
+            assert plan.design == design
+            got = groupby_cuda.launch_groupby(kv, vv, num_groups, plan)
+            assert torch.equal(got, groupby_cuda.groupby_small_plain(
+                kv, vv, num_groups)), (plan, n, off)
+
+
+def test_groupby_small_hot_key_wraps(cuda):
+    """Every row on one key, with sums past 2^32 (mod 2^32)."""
+    n = (1 << 22) + 3
+    k = torch.full((n,), 17, dtype=torch.int32, device=cuda)
+    v = torch.full((n,), 1 << 30, dtype=torch.int32, device=cuda)
+    for g in (20, 64, 4096):
+        got = groupby_cuda.groupby_small(k, v, g)
+        assert torch.equal(got, groupby_cuda.groupby_small_plain(k, v, g))
+    wrapped = np.array([(n << 30) % 2**32], np.uint64).astype(np.uint32)
+    assert int(got[17]) == int(wrapped.view(np.int32)[0])
+
+
+def test_groupby_small_refuses_a_broken_plan(cuda, rng):
+    """A plan whose head leaves the keys off 16 bytes, or whose tables do
+    not fit its shared bytes, launches nothing and raises."""
+    k, v = _groupby_input(rng, 1 << 16, 64, cuda)
+    good = groupby_cuda.groupby_plan(64, 1 << 16, 132)
+    for bad in (good._replace(head=1), good._replace(smem=4 * 64 - 4),
+                good._replace(tables=17, smem=4 * 64 * 17)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            groupby_cuda.launch_groupby(k, v, 64, bad)
+    assert torch.equal(groupby_cuda.launch_groupby(k, v, 64, good),
+                       groupby_cuda.groupby_small_plain(k, v, 64))
+
+
+def test_groupby_small_back_to_back_and_on_two_streams(cuda, rng):
+    """The last block leaves the ticket and the accumulator at 0: calls back
+    to back on one stream, and three on each of two streams at once (each
+    with its own scratch), are each exact."""
+    n = (1 << 22) + 3
+    cases = [(g, *_groupby_input(rng, n, g, cuda)) for g in (64, 4096)]
+    exp = [groupby_cuda.groupby_small_plain(k, v, g) for g, k, v in cases]
+    for _ in range(3):
+        for (g, k, v), e in zip(cases, exp):
+            assert torch.equal(groupby_cuda.groupby_small(k, v, g), e)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(1_000_000)
+            outs.append([groupby_cuda.groupby_small(k, v, g)
+                         for _ in range(3) for g, k, v in cases])
+    torch.cuda.synchronize()
+    for out in outs:
+        for got, e in zip(out, exp * 3):
+            assert torch.equal(got, e)
+    for s in streams + [torch.cuda.current_stream()]:
+        with torch.cuda.stream(s):
+            scratch = _build.stream_scratch("groupby_small", cuda,
+                                            groupby_cuda.SCRATCH_WORDS)
+        assert not scratch.any()
+
+
+def test_groupby_small_replays_in_a_captured_graph(cuda, rng):
+    """One call captured in a CUDA graph, replayed 3 times on new inputs
+    copied into its static ones: each replay is exact, and finds the
+    scratch the last one left at 0."""
+    n = (1 << 22) + 3
+    k, v = _groupby_input(rng, n, 64, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        groupby_cuda.groupby_small(k, v, 64)  # the side stream's scratch
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = groupby_cuda.groupby_small(k, v, 64)
+    for _ in range(3):
+        k2, v2 = _groupby_input(rng, n, 64, cuda)
+        k.copy_(k2)
+        v.copy_(v2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, groupby_cuda.groupby_small_plain(k, v, 64))
+    graph.reset()
+
+
+def test_groupby_small_one_kernel_no_sync(cuda, rng):
+    """One kernel and no memset a call, and no read back to the host (sync
+    debug mode "error")."""
+    k, v = _groupby_input(rng, 1 << 22, 64, cuda)
+    assert device_ops(groupby_cuda.groupby_small, k, v, 64) == (1, 0)
+    assert device_ops(groupby_cuda.groupby_small, k[1:], v[1:], 4096) == (1, 0)
+    groupby_cuda.groupby_small(k, v, 64)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = groupby_cuda.groupby_small(k, v, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, groupby_cuda.groupby_small_plain(k, v, 64))
+
+
 def _same_prefix(got, exp, k):
     """Equal in the first k slots (the rest is garbage by contract)."""
     return got.shape == exp.shape and torch.equal(got[:k], exp[:k])
