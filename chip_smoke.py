@@ -68,6 +68,14 @@ with nvcc, then:
      config-#4 hash extra (bench.py run_hash2p24_extra: slab build and
      16-bit probe, cuckoo build and ``has``, 2^24 keys, 2^24 probes at
      50 % hits) against a numpy oracle;
+     then (``phase_cliffs``, with the launch counts set to 0) the adaptive
+     engines' dispatch cliffs and the engine fuzz (``utils/cliffs.py``:
+     every case of the JAX package's tests/test_cliffs_slow.py and
+     tests/test_engine_fuzz.py at their sizes, and the filter caps' and
+     sort spans' exact boundaries), one line a case with its branch,
+     count, exactness and ms; a case that is not exact, takes another
+     branch than the host predicts, or does not launch its branch's
+     kernels fails the run;
   4. drives this slice's library paths with the launch counts set to 0:
      filter_sparse(stats_pallas=True and False) at 2^24 (x < 5) and 2^20
      (x < 5000, caps trip) against filter_oracle, timed beside
@@ -111,10 +119,11 @@ with nvcc, then:
      process that must exit 0 with every run valid, and ``report.py`` over
      each CSV listing every size; the 50 %-hit hash harness at 2^24 in this
      process; the scaling harness on a world of ``device_count()`` NCCL
-     ranks at 2^18 and 2^20 rows; the scaling model at 2^20 from the
-     card's rates; the release tar with the kernel library, whose entry
-     must run unpacked with nvcc hidden; the launches of these runs (read
-     from the CLI processes and the scaling ranks) are counted;
+     ranks at 2^18 and 2^20 rows; the scaling model at 2^20 from phase
+     6's bench line, with the world of one's rates beside it; the release
+     tar with the kernel library, whose entry must run unpacked with nvcc
+     hidden; the launches of these runs (read from the CLI processes and
+     the scaling ranks) are counted;
   9. prints the kernels whose profiler time fell below their bound, one
      JSON line with each kernel's launches, error and times, and last the
      JSON line ``{"ok": true, "device": {...}}``.
@@ -1466,6 +1475,32 @@ def phase_dwarfs(device_flag):
     return launches
 
 
+def phase_cliffs(dev):
+    """The adaptive engines' dispatch cliffs and the engine fuzz on the
+    card (``dwarf_bench_tpu_torch/utils/cliffs.py``: every case of the JAX
+    package's tests/test_cliffs_slow.py and tests/test_engine_fuzz.py at
+    their sizes, and the filter caps' and the sort spans' exact
+    boundaries), with the launch counts set to 0 before and read after:
+    one line a case (the branch taken, the count, exact or not, the ms of
+    one call). A case that is not exact against its host oracle, takes
+    another branch than the host predicts, or does not launch its branch's
+    kernels fails the run. Returns the counts."""
+    from dwarf_bench_tpu_torch.ops import _build
+    from dwarf_bench_tpu_torch.utils import cliffs
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for case in cliffs.CASES:
+        got = cliffs.run(case, dev)
+        print(got.line(), flush=True)
+        check(got.ok, got.line())
+    launches = dict(_build.LAUNCHES)
+    print(f"cliffs: {len(cliffs.CASES)} cases exact in "
+          f"{time.perf_counter() - t0!r} s", flush=True)
+    print(f"launches in the cliffs phase: {launches}", flush=True)
+    return launches
+
+
 def scan_ops(dev):
     """filter_sparse called directly, where the dwarfs cannot reach:
     - the caps trip (2^20 rows, x < 5000: the data and predicate of bench.py
@@ -2014,7 +2049,7 @@ def phase_bench(dev):
     against its host oracle: the sorted column, the group sums, the join's
     id sets, the scan's rows, and the extras' rows, sum and probes); every
     component positive and no cold share of the roofline above 1.0; every
-    kernel of its path launched. Returns the counts."""
+    kernel of its path launched. Returns the counts and the line."""
     from dwarf_bench_tpu_torch import bench
     from dwarf_bench_tpu_torch.ops import _build
 
@@ -2036,7 +2071,7 @@ def phase_bench(dev):
     for k in BENCH_KERNELS:
         check(launches[k] > 0, f"bench: kernel {k} was not launched")
     print(f"launches in the bench phase: {launches}", flush=True)
-    return launches
+    return launches, line
 
 
 def phase_timers(dev):
@@ -2400,14 +2435,16 @@ def sweep_grids(tmp):
     return launches
 
 
-def phase_scripts(dev):
+def phase_scripts(dev, bench_line):
     """The scripts of ``dwarf_bench_tpu_torch/scripts/`` on the card: every
     sweep grid at its largest and smallest size, with the report over each
     CSV; the 50 %-hit hash harness at 2^24 (both phases, 9 iterations,
     validated on the device) in this process; the scaling harness on a
     world of ``device_count()`` NCCL ranks at 2^18 and 2^20 rows (overflow
-    0), which writes the card's rates; the scaling model at 2^20 from them
-    (its byte tally on a gloo world of 8 CPU processes); and the release
+    0), which writes the card's world-of-one rates; the scaling model at
+    2^20 from ``bench_line`` (``phase_bench``'s) with the world of one
+    beside it (its byte tally on a gloo world of 8 CPU processes); and the
+    release
     tar with the kernel library, unpacked, whose entry must run with nvcc
     hidden. Each step's seconds are printed; the launches of every step
     but the release's are returned."""
@@ -2466,15 +2503,20 @@ def phase_scripts(dev):
         t3 = time.perf_counter()
         print(f"scripts: scaling took {t3 - t2!r} s", flush=True)
 
+        bench_json = os.path.join(tmp, "bench.json")
+        with open(bench_json, "w") as f:
+            f.write(json.dumps(bench_line) + "\n")
         proc = _script(["dwarf_bench_tpu_torch.scripts.scaling_model",
-                        "--rows-per-chip", str(1 << 20), "--compute_json",
+                        "--rows-per-chip", str(1 << 20), "--bench_json",
+                        bench_json, "--compute_json",
                         os.path.join(tmp, "compute_20.json"), "--out", tmp],
                        900)
         with open(os.path.join(tmp, "scaling_model.json")) as f:
             mod = json.load(f)
         check(len(mod["ops"]) == 6 and all(
-            set(op["projection"]) == {"8", "32", "256"}
-            for op in mod["ops"].values()), f"scaling_model: {mod}")
+            set(op[p]) == {"8", "32", "256"} for op in mod["ops"].values()
+            for p in ("projection", "projection_world_of_one")),
+            f"scaling_model: {mod}")
         print(proc.stdout, end="", flush=True)
         print(f"scaling_model: B_NVLINK {mod['B_NVLINK']!r}, B_IB "
               f"{mod['B_IB']!r}, band x{mod['band']!r}", flush=True)
@@ -2538,35 +2580,38 @@ def main() -> int:
     stats = phase_kernels(dev)
     t2 = time.perf_counter()
     dwarf_launches = phase_dwarfs("gpu")
+    t_cliffs = time.perf_counter()
+    cliff_launches = phase_cliffs(dev)
     t3 = time.perf_counter()
     library_launches = phase_library(dev)
     t4 = time.perf_counter()
     front_launches = phase_front_end(dev)
     t5 = time.perf_counter()
-    bench_launches = phase_bench(dev)
+    bench_launches, bench_line = phase_bench(dev)
     t6 = time.perf_counter()
     phase_timers(dev)
     entry_launches = phase_entry(dev)
     t7 = time.perf_counter()
     parallel_launches = phase_parallel(dev)
     t8 = time.perf_counter()
-    script_launches = phase_scripts(dev)
+    script_launches = phase_scripts(dev, bench_line)
     print(f"phase seconds: kernels {t2 - t1!r}, dwarfs and ops "
-          f"{t3 - t2!r}, library paths {t4 - t3!r}, front end "
+          f"{t_cliffs - t2!r}, cliffs {t3 - t_cliffs!r}, library paths {t4 - t3!r}, front end "
           f"{t5 - t4!r}, bench {t6 - t5!r}, timers and entry "
           f"{t7 - t6!r}, parallel {t8 - t7!r}, scripts "
           f"{time.perf_counter() - t8!r}, whole script "
           f"{time.perf_counter() - t0!r}", flush=True)
-    launches = {name: dwarf_launches[name] + library_launches[name]
+    launches = {name: dwarf_launches[name] + cliff_launches[name]
+                + library_launches[name]
                 + front_launches[name] + bench_launches[name]
                 + entry_launches[name] + parallel_launches[name]
                 + script_launches[name]
                 for name in KERNELS}
     for name in KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the "
-                                  "dwarfs, the library paths, the front "
-                                  "end, the bench, the entry, the "
-                                  "distributed layer or the scripts")
+                                  "dwarfs, the cliffs, the library paths, "
+                                  "the front end, the bench, the entry, "
+                                  "the distributed layer or the scripts")
         check(stats[name]["ms"] is not None, f"kernel {name} was not timed")
 
     print("device_ms below bound_ms (a trace lost kernels, or the inputs sat "

@@ -23,7 +23,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import chunk_stats_cuda, compact_cuda, filter_cuda, scan_tail_cuda
+from . import (
+    branches,
+    chunk_stats_cuda,
+    compact_cuda,
+    filter_cuda,
+    scan_tail_cuda,
+)
 from .chunk_stats import chunk_stats
 from .filter_cuda import DEFAULT_THRESHOLD  # x < 5 (scan/scan.cl:14)
 from .primitives import compact, exclusive_cumsum
@@ -65,6 +71,29 @@ def filter_two_pass(x: torch.Tensor, threshold: int = DEFAULT_THRESHOLD,
     return out[:capacity], count
 
 
+def sparse_counts(x, threshold: int = DEFAULT_THRESHOLD, chunk: int = 128):
+    """(n_single, n_multi, n_melems) of the numpy int32 host column, as
+    ``filter_sparse`` counts them on the device: the in-window single-match
+    chunks, the other matching chunks, and the matches outside the
+    singles; the quantities its caps bound."""
+    x = np.asarray(x)
+    thr = int(threshold)
+    pad = (-x.shape[0]) % chunk
+    xp = np.pad(x, (0, pad), constant_values=thr)
+    x2 = xp.reshape(-1, chunk)
+    m = x2 < thr
+    cnt = m.sum(axis=1)
+    # window encoding (ops/chunk_stats): vsum is the match's distance only
+    # when the single match lies in (thr-256, thr); out-of-window singles
+    # (the vsum 256 marker) take the multi/gather path
+    d = np.clip(thr - np.maximum(x2, thr - 512), 0, 256)
+    vs = np.minimum(d.sum(axis=1), 511)
+    single = (cnt == 1) & (vs >= 1) & (vs <= 255)
+    multi = (cnt >= 1) & ~single
+    n_single = int(single.sum())
+    return n_single, int(multi.sum()), int(cnt.sum()) - n_single
+
+
 def sparse_caps_ok(
     x,
     threshold: int = DEFAULT_THRESHOLD,
@@ -83,8 +112,7 @@ def sparse_caps_ok(
     n = x.shape[0]
     if x.dtype != np.int32 or n >= (1 << 30):
         return False
-    thr = int(threshold)
-    if thr <= -(2**31) + 512:
+    if int(threshold) <= -(2**31) + 512:
         return False
     if cap_mc is None:
         cap_mc = max(512, n >> 15)
@@ -92,22 +120,7 @@ def sparse_caps_ok(
         cap_single = max(16384, n >> 10)
     if cap_melems is None:
         cap_melems = max(4096, n >> 12)
-    pad = (-n) % chunk
-    xp = np.pad(x, (0, pad), constant_values=thr)
-    x2 = xp.reshape(-1, chunk)
-    m = x2 < thr
-    cnt = m.sum(axis=1)
-    # window encoding (ops/chunk_stats): vsum is the match's distance only
-    # when the single match lies in (thr-256, thr); out-of-window singles
-    # (the vsum 256 marker) take the multi/gather path
-    d = np.clip(thr - np.maximum(x2, thr - 512), 0, 256)
-    vs = np.minimum(d.sum(axis=1), 511)
-    single = (cnt == 1) & (vs >= 1) & (vs <= 255)
-    multi = (cnt >= 1) & ~single
-    total = int(cnt.sum())
-    n_single = int(single.sum())
-    n_multi = int(multi.sum())
-    n_melems = total - n_single
+    n_single, n_multi, n_melems = sparse_counts(x, threshold, chunk)
     return (
         n_single <= cap_single
         and n_multi <= cap_mc
@@ -180,6 +193,7 @@ def filter_sparse(
     if capacity is None:
         capacity = n
     if x.dtype != torch.int32 or n >= (1 << 30):
+        branches.take("filter_sparse", "general")
         if x.device.type == "cuda":
             return filter_cuda.filter(x, threshold, capacity)
         return filter_two_pass(x, threshold, capacity)
@@ -232,7 +246,9 @@ def filter_sparse(
         # threshold - 512 must not wrap in the window encoding. The one host
         # read of this path: eager torch has no lax.cond.
         if thr <= -(2**31) + 512 or not bool(ok):
+            branches.take("filter_sparse", "general")
             return filter_cuda.filter(x, thr, capacity)
+    branches.take("filter_sparse", "sparse")
 
     valid_m = _iota(cap_mc, device) < n_multi
     rows = x2[torch.where(valid_m, mids, 0)]  # (cap_mc, chunk) row gather

@@ -25,7 +25,7 @@ from typing import Callable, Union
 import numpy as np
 import torch
 
-from . import cumsum_cuda, hist_cuda
+from . import branches, cumsum_cuda, hist_cuda
 
 _RANGE_BITS = 14
 _NARROW_BINS = 80 * 128  # the benchmark's [1, 10000] spans land here
@@ -85,9 +85,12 @@ def sort_auto(x: torch.Tensor) -> torch.Tensor:
     minv = torch.min(x)
     span = int(torch.max(x)) - int(minv)
     if span < _NARROW_BINS:
+        branches.take("sort_auto", "hi80")
         return _sort_counting_shifted(x, minv, hi_bins=80)
     if span < (1 << _RANGE_BITS):
+        branches.take("sort_auto", "hi128")
         return _sort_counting_shifted(x, minv, hi_bins=128)
+    branches.take("sort_auto", "torch.sort")
     return torch.sort(x).values
 
 

@@ -6,6 +6,9 @@ import io
 import json
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 import dwarf_bench_tpu.api as jax_api

@@ -12,6 +12,9 @@ import pathlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.ops import bucket_hash as jax_bucket_hash

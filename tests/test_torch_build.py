@@ -8,6 +8,8 @@ import sys
 
 import pytest
 
+pytest.importorskip("torch")
+
 from dwarf_bench_tpu_torch.ops import _build
 
 _ENTRY = re.compile(r'extern "C" [\w\s\*]+?\b(dbt_\w+)\(([^)]*)\)', re.S)

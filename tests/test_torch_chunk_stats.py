@@ -8,6 +8,9 @@ the card."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.ops import chunk_stats_pallas as jax_stats

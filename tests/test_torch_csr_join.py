@@ -8,6 +8,9 @@ kernels' plain versions."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.ops import csr_join as jax_csr

@@ -5,6 +5,9 @@ expansion. All outputs are integers, so the tolerance is exact equality."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.ops.cumsum_pallas import cumsum_pallas

@@ -9,6 +9,9 @@ import subprocess
 import sys
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 import torch.distributed as dist
 

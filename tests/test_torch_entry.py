@@ -9,6 +9,9 @@ import sys
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 import __graft_entry__

@@ -12,6 +12,9 @@ import re
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 from jax.experimental.pallas import tpu as pltpu
 

@@ -14,6 +14,9 @@ import sys
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu_torch import (

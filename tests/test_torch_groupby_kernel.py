@@ -6,6 +6,9 @@ equality of the bits."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.ops.groupby import groupby_oracle

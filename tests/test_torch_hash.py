@@ -5,6 +5,9 @@ both builds, and the tables, counts, rounds and answers must agree."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.ops import bucket_hash as jbh

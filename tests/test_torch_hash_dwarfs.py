@@ -9,6 +9,9 @@ import io
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu import native as jax_native

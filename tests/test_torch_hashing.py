@@ -6,6 +6,9 @@ output is an integer."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.ops import hashing as jh

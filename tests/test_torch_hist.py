@@ -5,6 +5,9 @@ tolerance is exact equality."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.ops.groupby import groupby_oracle

@@ -8,6 +8,9 @@ kernels in interpret mode, out-of-range keys included. Values stay below
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.ops import groupby_pallas as jax_gb

@@ -11,6 +11,9 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 from jax.experimental.pallas import tpu as pltpu
 

@@ -6,6 +6,9 @@ interpret mode, and ``merge_lookup`` / ``merge_lookup_bitonic`` /
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.ops import merge_lookup as jml

@@ -16,6 +16,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
+# the worker imports torch and the port
+pytest.importorskip("torch")
+
 REPO = Path(__file__).resolve().parent.parent
 
 WORKER = r"""

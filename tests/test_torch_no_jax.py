@@ -33,6 +33,7 @@ def test_source_imports_no_jax(path):
 
 
 def test_import_loads_no_jax():
+    pytest.importorskip("torch")  # the port imports torch
     code = (
         "import sys\n"
         "import dwarf_bench_tpu_torch, dwarf_bench_tpu_torch.cli\n"

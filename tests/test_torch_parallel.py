@@ -20,6 +20,9 @@ from collections import Counter
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 

@@ -11,6 +11,10 @@ seed, so the test builds the same arrays for the JAX side.
 from __future__ import annotations
 
 import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
 import torch
 import torch.distributed as dist
 

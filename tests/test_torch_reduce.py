@@ -5,6 +5,9 @@ oracle, including sums that wrap past 2^31 and 2^32."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.ops import reduce as jr

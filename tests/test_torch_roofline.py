@@ -4,6 +4,9 @@ bandwidth, the scaling efficiency, and the card table."""
 
 import jax
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.utils import roofline as jax_roofline

@@ -15,6 +15,9 @@ on the CPU.
     virtual CPU devices at the same size: per kind, the same result-byte
     multisets, except where the port moves more by construction, each
     relation stated exactly (no tolerance: bytes are integers).
+  * the model's compute term: the bench line's component rates by the JAX
+    ``build_ops``' keys (its "sort" is the bench's radix), a line that no
+    card wrote refused, and the world-of-one projection written apart.
 
 The JAX ``scaling_model.py`` sets JAX_PLATFORMS, XLA_FLAGS and
 ``jax_platforms`` at import; conftest has set the same values already, so
@@ -34,6 +37,9 @@ from collections import Counter
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu_torch.scripts import scaling, scaling_model
@@ -254,15 +260,17 @@ def test_model_functions_equal_the_jax_ones(jax_model, tally):
 
 def test_model_without_compute_json_exits_2(tally, monkeypatch, capsys,
                                             tmp_path):
-    """No built-in rates: the tally is printed and the exit code is 2."""
+    """No built-in rates: without a bench line the tally is printed and the
+    exit code is 2, with or without a world-of-one compute file."""
     monkeypatch.setattr(scaling_model, "tally_ops", lambda R: tally)
-    assert scaling_model.main(["--rows-per-chip", str(R_TALLY), "--out",
-                               str(tmp_path)]) == 2
-    out, err = capsys.readouterr()
-    for name in tally:
-        assert out.count(f"{name}: collectives=") == 1
-    assert "no --compute_json" in err
-    assert not (tmp_path / "scaling_model.json").exists()
+    for extra in ([], ["--compute_json", _compute(tmp_path)]):
+        assert scaling_model.main(["--rows-per-chip", str(R_TALLY), "--out",
+                                   str(tmp_path), *extra]) == 2
+        out, err = capsys.readouterr()
+        for name in tally:
+            assert out.count(f"{name}: collectives=") == 1
+        assert "no --bench_json" in err
+        assert not (tmp_path / "scaling_model.json").exists()
 
 
 def _compute(tmp_path, platform="gpu", rows=R_TALLY):
@@ -275,6 +283,25 @@ def _compute(tmp_path, platform="gpu", rows=R_TALLY):
     return str(path)
 
 
+# rows/s of the bench's components, as a card's line gives them
+BENCH_RATES = {"radix": 58.6e9, "groupby": 290e9, "groupby_big": 38.2e9,
+               "join": 3.18e9, "scan": 118e9}
+
+
+def _bench(tmp_path, **change):
+    from dwarf_bench_tpu_torch.bench import TIMING_METHOD
+
+    line = {"metric": "query_ops_rows_per_s_geomean", "value": 1.0,
+            "components_rows_per_s": dict(BENCH_RATES), "skipped": [],
+            "timing_method": TIMING_METHOD,
+            "device": "NVIDIA H100 80GB HBM3, 700.00 W"}
+    line.update(change)
+    path = tmp_path / "bench.json"
+    # a file of the bench's stdout: its line last
+    path.write_text("a line before it\n" + json.dumps(line) + "\n")
+    return str(path)
+
+
 def test_model_refuses_rates_not_of_a_card(tmp_path):
     with pytest.raises(ValueError, match="not a card"):
         scaling_model.load_compute(_compute(tmp_path, "cpu"), R_TALLY)
@@ -282,27 +309,111 @@ def test_model_refuses_rates_not_of_a_card(tmp_path):
         scaling_model.load_compute(_compute(tmp_path, rows=1 << 20), R_TALLY)
 
 
+@pytest.mark.parametrize("change,match", [
+    ({"device": "cpu"}, "not a card"),
+    ({"device": "nvidia-smi failed"}, "not a card"),
+    ({"timing_method": "host-clock slope of 17 calls against 1 (CPU: no "
+                       "device metric)"}, "timing method"),
+    ({"skipped": ["join"]}, "component join"),
+    ({"skipped": ["radix:RuntimeError"]}, "component radix"),
+    ({"components_rows_per_s": {k: v for k, v in BENCH_RATES.items()
+                                if k != "scan"}}, "component scan"),
+])
+def test_model_refuses_a_bench_line_no_card_wrote(tmp_path, change, match):
+    """A bench line from the CPU, by another timer, or with a component
+    the model needs skipped, raised or missing, is refused."""
+    with pytest.raises(ValueError, match=match):
+        scaling_model.load_bench(_bench(tmp_path, **change),
+                                 scaling_model.COMPUTE_KEYS)
+
+
+def test_model_reads_the_bench_line(tmp_path):
+    """The rates by the JAX model's keys: its "sort" is the bench's radix;
+    groupby_big, which no operator reads, may be skipped."""
+    got = scaling_model.load_bench(
+        _bench(tmp_path, skipped=["groupby_big", "hash2p24_extra"]),
+        scaling_model.COMPUTE_KEYS)
+    assert got["rows_per_s"] == {"join": 3.18e9, "groupby": 290e9,
+                                 "sort": 58.6e9, "scan": 118e9}
+    assert got["device"] == "NVIDIA H100 80GB HBM3, 700.00 W"
+
+
+def test_model_compute_keys_are_the_jax_ones(jax_model, tally):
+    """Each operator's compute key is the JAX ``build_ops``' own (read from
+    the JAX script, not copied), and each key's bench component is the one
+    the JAX rates were taken from (BENCH_r04.json's components, within
+    their rounding): "sort" is the radix."""
+    jax_keys = {name: key for name, _, _, key, _ in
+                jax_model.build_ops(R_TALLY)}
+    assert {name: op["compute_key"] for name, op in tally.items()} == \
+        jax_keys
+    assert set(jax_model.SINGLE_CHIP_ROWS_PER_S) == \
+        set(scaling_model.BENCH_COMPONENT)
+    assert set(jax_keys.values()) == set(scaling_model.COMPUTE_KEYS)
+    r04 = json.loads((REPO / "BENCH_r04.json").read_text())
+    comps = r04["parsed"]["components_rows_per_s"]
+    for key, rate in jax_model.SINGLE_CHIP_ROWS_PER_S.items():
+        comp = comps[scaling_model.BENCH_COMPONENT[key]]
+        assert abs(rate - comp) <= 0.005 * comp, (key, rate, comp)
+
+
+def test_model_charges_the_bench_component(tally, tmp_path):
+    """At 2^20 rows a GPU both joins are charged 2^20 / the bench's join
+    rate, the sort 2^20 / its radix rate, as the JAX model charges them."""
+    R = 1 << 20
+    bench = scaling_model.load_bench(_bench(tmp_path),
+                                     scaling_model.COMPUTE_KEYS)
+    got = scaling_model.model(tally, bench, R)
+    for name in ("dist_csr_join_dense", "dist_csr_join_ring"):
+        entry = got["ops"][name]
+        assert entry["compute_component"] == "join"
+        assert entry["bench_component"] == "join"
+        for p in entry["projection"].values():
+            assert p["t_compute_ms"] == round(R / BENCH_RATES["join"] * 1e3,
+                                              4)
+    for p in got["ops"]["dist_sort"]["projection"].values():
+        assert p["t_compute_ms"] == round(R / BENCH_RATES["radix"] * 1e3, 4)
+    assert got["ops"]["dist_sort"]["bench_component"] == "radix"
+    assert "projection_world_of_one" not in got["ops"]["dist_sort"]
+
+
 def test_model_json(tally, monkeypatch, tmp_path, capsys):
-    """With a compute file the model writes scaling_model.json into --out:
+    """With a bench line the model writes scaling_model.json into --out:
     six ops, projections at 8 (NVLink), 32 and 256 (InfiniBand), and the
-    link figures with their sources."""
+    link figures with their sources; with a world-of-one file too, its
+    projection is written apart, labelled, and the headline is unchanged."""
     monkeypatch.setattr(scaling_model, "tally_ops", lambda R: tally)
     assert scaling_model.main(["--rows-per-chip", str(R_TALLY),
+                               "--bench_json", _bench(tmp_path),
+                               "--out", str(tmp_path)]) == 0
+    alone = json.loads((tmp_path / "scaling_model.json").read_text())
+    assert "world_of_one" not in alone
+    assert scaling_model.main(["--rows-per-chip", str(R_TALLY),
+                               "--bench_json", _bench(tmp_path),
                                "--compute_json", _compute(tmp_path),
                                "--out", str(tmp_path)]) == 0
     got = json.loads((tmp_path / "scaling_model.json").read_text())
     assert got["B_NVLINK"] == 450e9 and got["B_IB"] == 50e9
     assert set(got["sources"]) == {"B_NVLINK", "B_IB"}
+    assert got["device"] == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert "not the headline" in got["world_of_one"]["source"]
     assert list(got["ops"]) == list(tally)
     for name, entry in got["ops"].items():
         assert entry["collectives_8rank_result_bytes"] == \
             tally[name]["collectives"]
-        links = {n: p["link"] for n, p in entry["projection"].items()}
-        assert links == {"8": "nvlink", "32": "ib", "256": "ib"}
-        for p in entry["projection"].values():
-            assert p["eff_no_overlap_half_bw"] <= p["eff_no_overlap"] <= \
-                p["eff_no_overlap_2x_bw"] <= 1.0
-    assert "scaling_model.json" in capsys.readouterr().out
+        assert entry["projection"] == alone["ops"][name]["projection"]
+        assert entry["world_op"] in scaling.OPS
+        for proj in ("projection", "projection_world_of_one"):
+            links = {n: p["link"] for n, p in entry[proj].items()}
+            assert links == {"8": "nvlink", "32": "ib", "256": "ib"}
+            for p in entry[proj].values():
+                assert p["eff_no_overlap_half_bw"] <= p["eff_no_overlap"] \
+                    <= p["eff_no_overlap_2x_bw"] <= 1.0
+        for p in entry["projection_world_of_one"].values():
+            assert p["t_compute_ms"] == round(R_TALLY / 1e9 * 1e3, 4)
+    out = capsys.readouterr().out
+    assert "scaling_model.json" in out
+    assert out.count("world of one: ") == 3 * len(tally)
 
 
 def test_record_collectives_records_and_closes():

@@ -14,6 +14,9 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.cli import main as jax_main

@@ -8,6 +8,9 @@ garbage by contract)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.ops.chunk_stats import chunk_stats_xla

@@ -21,6 +21,9 @@ import tarfile
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.ops import bucket_hash as jbucket

@@ -12,6 +12,9 @@ import sys
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.cli import main as jax_main

@@ -8,6 +8,9 @@ import inspect
 import time
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from dwarf_bench_tpu.utils import timing as jax_timing
