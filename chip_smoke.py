@@ -73,9 +73,10 @@ with nvcc, then:
      every case of the JAX package's tests/test_cliffs_slow.py and
      tests/test_engine_fuzz.py at their sizes, and the filter caps' and
      sort spans' exact boundaries), one line a case with its branch,
-     count, exactness and ms; a case that is not exact, takes another
-     branch than the host predicts, or does not launch its branch's
-     kernels fails the run;
+     count, exactness, ms and reads back to the host; a case that is not
+     exact, takes another branch than the host predicts, does not launch
+     its branch's kernels, or reads back other than ``ops.trace.READS``
+     documents fails the run;
   4. drives this slice's library paths with the launch counts set to 0:
      filter_sparse(stats_pallas=True and False) at 2^24 (x < 5) and 2^20
      (x < 5000, caps trip) against filter_oracle, timed beside
@@ -1482,9 +1483,10 @@ def phase_cliffs(dev):
     their sizes, and the filter caps' and the sort spans' exact
     boundaries), with the launch counts set to 0 before and read after:
     one line a case (the branch taken, the count, exact or not, the ms of
-    one call). A case that is not exact against its host oracle, takes
-    another branch than the host predicts, or does not launch its branch's
-    kernels fails the run. Returns the counts."""
+    one call, the reads back to the host). A case that is not exact
+    against its host oracle, takes another branch than the host predicts,
+    does not launch its branch's kernels, or reads back other than
+    ``ops.trace.READS`` documents fails the run. Returns the counts."""
     from dwarf_bench_tpu_torch.ops import _build
     from dwarf_bench_tpu_torch.utils import cliffs
 

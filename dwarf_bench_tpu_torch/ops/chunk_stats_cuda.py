@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, cumsum_cuda
+from . import _build, cumsum_cuda, trace
 from .chunk_stats import chunk_stats as chunk_stats_plain
 
 __all__ = ["chunk_stats", "chunk_stats_pallas", "chunk_stats_roll_pallas",
@@ -70,7 +70,12 @@ def _launch(op: str, x2: torch.Tensor, thr: int):
 def chunk_stats(x2: torch.Tensor, threshold: int):
     """(stat, base) of ``x2``: ``filter_sparse``'s phase A on its default
     path."""
-    return _stats("chunk_stats", x2, threshold)
+    sp = trace.begin("kernel.chunk_stats")
+    try:
+        return _stats("chunk_stats", x2, threshold)
+    finally:
+        if sp:
+            sp.close()
 
 
 def chunk_stats_pallas(x2: torch.Tensor, threshold: int):

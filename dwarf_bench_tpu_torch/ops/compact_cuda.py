@@ -32,7 +32,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, trace
 from .primitives import compact_multi
 
 
@@ -67,23 +67,28 @@ def compact_mask_plain(mask: torch.Tensor, cols: Sequence[torch.Tensor],
 
 def compact_mask(mask: torch.Tensor, cols: Sequence[torch.Tensor],
                  capacity: Optional[int] = None):
-    cols, device, n = _check_cols(cols)
-    _check_mask(mask, n, device)
-    cap = _build.check_capacity("compact_mask", capacity, n)
-    if device.type == "cpu":
-        return compact_mask_plain(mask, cols, cap)
-    # two counters and the status words: zero when made, left zero
-    scratch = _build.stream_scratch("compact", device,
-                                    _build.compact_scratch_words(n, 1))
-    outs = [cols[0].new_empty(cap) for _ in cols]
-    count = cols[0].new_empty(())
-    col_ptrs = [c.data_ptr() for c in cols] + [None] * (3 - len(cols))
-    out_ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(cols))
-    _build.launch("dbt_compact_mask", device, mask.data_ptr(), *col_ptrs,
-                  len(cols), n, *out_ptrs, cap, count.data_ptr(),
-                  scratch.data_ptr())
-    _build.LAUNCHES["compact_mask"] += 1
-    return tuple(outs), count
+    sp = trace.begin("kernel.compact_mask")
+    try:
+        cols, device, n = _check_cols(cols)
+        _check_mask(mask, n, device)
+        cap = _build.check_capacity("compact_mask", capacity, n)
+        if device.type == "cpu":
+            return compact_mask_plain(mask, cols, cap)
+        # two counters and the status words: zero when made, left zero
+        scratch = _build.stream_scratch("compact", device,
+                                        _build.compact_scratch_words(n, 1))
+        outs = [cols[0].new_empty(cap) for _ in cols]
+        count = cols[0].new_empty(())
+        col_ptrs = [c.data_ptr() for c in cols] + [None] * (3 - len(cols))
+        out_ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(cols))
+        _build.launch("dbt_compact_mask", device, mask.data_ptr(), *col_ptrs,
+                      len(cols), n, *out_ptrs, cap, count.data_ptr(),
+                      scratch.data_ptr())
+        _build.LAUNCHES["compact_mask"] += 1
+        return tuple(outs), count
+    finally:
+        if sp:
+            sp.close()
 
 
 _AGGREGATE, _PREFIX = 1, 2  # status flags of csrc/compact.cuh
@@ -301,14 +306,19 @@ def emit_prefix(vals: torch.Tensor, capacity: int,
     ``vals``: the kernel does not check), in the first slots of a
     (capacity,) buffer; its twin is ``emit_prefix_plain`` of the same
     values."""
-    device = _check_emit(vals, capacity, index)
-    if device.type == "cpu":
-        return emit_prefix_plain(vals if index is None else vals[index],
-                                 capacity)
-    out = torch.empty(capacity, dtype=torch.int32, device=device)
-    length = vals.numel() if index is None else index.numel()
-    _build.launch("dbt_emit_prefix", device, vals.data_ptr(),
-                  None if index is None else index.data_ptr(), length,
-                  out.data_ptr())
-    _build.LAUNCHES["emit_prefix"] += 1
-    return out
+    sp = trace.begin("kernel.emit_prefix")
+    try:
+        device = _check_emit(vals, capacity, index)
+        if device.type == "cpu":
+            return emit_prefix_plain(vals if index is None else vals[index],
+                                     capacity)
+        out = torch.empty(capacity, dtype=torch.int32, device=device)
+        length = vals.numel() if index is None else index.numel()
+        _build.launch("dbt_emit_prefix", device, vals.data_ptr(),
+                      None if index is None else index.data_ptr(), length,
+                      out.data_ptr())
+        _build.LAUNCHES["emit_prefix"] += 1
+        return out
+    finally:
+        if sp:
+            sp.close()

@@ -20,7 +20,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from . import _build
+from . import _build, trace
 from .primitives import wrap_i32
 
 Carry = Union[int, torch.Tensor]
@@ -63,16 +63,21 @@ def cumsum_plain(x: torch.Tensor, carry_init: Carry = 0) -> torch.Tensor:
 
 
 def cumsum(x: torch.Tensor, carry_init: Carry = 0) -> torch.Tensor:
-    device = _build.check_vectors("cumsum", x)
-    if device.type == "cpu":
-        return cumsum_plain(x, carry_init)
-    carry, carry_val = pack_carry(carry_init, device)
-    n = x.numel()
-    out = torch.empty(n, dtype=torch.int32, device=device)
-    scratch = _build.stream_scratch("cumsum", device,
-                                    _build.cumsum_scratch_words(n))
-    _build.launch("dbt_cumsum", device, x.data_ptr(), n,
-                  None if carry is None else carry.data_ptr(), carry_val,
-                  out.data_ptr(), scratch.data_ptr())
-    _build.LAUNCHES["cumsum"] += 1
-    return out
+    sp = trace.begin("kernel.cumsum")
+    try:
+        device = _build.check_vectors("cumsum", x)
+        if device.type == "cpu":
+            return cumsum_plain(x, carry_init)
+        carry, carry_val = pack_carry(carry_init, device)
+        n = x.numel()
+        out = torch.empty(n, dtype=torch.int32, device=device)
+        scratch = _build.stream_scratch("cumsum", device,
+                                        _build.cumsum_scratch_words(n))
+        _build.launch("dbt_cumsum", device, x.data_ptr(), n,
+                      None if carry is None else carry.data_ptr(), carry_val,
+                      out.data_ptr(), scratch.data_ptr())
+        _build.LAUNCHES["cumsum"] += 1
+        return out
+    finally:
+        if sp:
+            sp.close()

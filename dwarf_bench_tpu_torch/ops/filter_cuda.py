@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, compact_cuda
+from . import _build, compact_cuda, trace
 from .primitives import compact
 
 DEFAULT_THRESHOLD = 5
@@ -34,21 +34,27 @@ def filter_plain(x: torch.Tensor, threshold: int = DEFAULT_THRESHOLD,
 
 def filter(x: torch.Tensor, threshold: int = DEFAULT_THRESHOLD,
            capacity: Optional[int] = None):
-    device = _build.check_vectors("filter", x)
-    thr = _build.check_int32("filter", "threshold", threshold)
-    n = x.numel()
-    cap = _build.check_capacity("filter", capacity, n)
-    if device.type == "cpu":
-        return filter_plain(x, thr, cap)
-    # two counters and the status words: zero when made, left zero
-    scratch = _build.stream_scratch("compact", device,
-                                    _build.compact_scratch_words(n, 1))
-    out = x.new_empty(cap)
-    count = x.new_empty(())
-    _build.launch("dbt_filter", device, x.data_ptr(), n, thr, out.data_ptr(),
-                  cap, count.data_ptr(), scratch.data_ptr())
-    _build.LAUNCHES["filter"] += 1
-    return out, count
+    sp = trace.begin("kernel.filter")
+    try:
+        device = _build.check_vectors("filter", x)
+        thr = _build.check_int32("filter", "threshold", threshold)
+        n = x.numel()
+        cap = _build.check_capacity("filter", capacity, n)
+        if device.type == "cpu":
+            return filter_plain(x, thr, cap)
+        # two counters and the status words: zero when made, left zero
+        scratch = _build.stream_scratch("compact", device,
+                                        _build.compact_scratch_words(n, 1))
+        out = x.new_empty(cap)
+        count = x.new_empty(())
+        _build.launch("dbt_filter", device, x.data_ptr(), n, thr,
+                      out.data_ptr(), cap, count.data_ptr(),
+                      scratch.data_ptr())
+        _build.LAUNCHES["filter"] += 1
+        return out, count
+    finally:
+        if sp:
+            sp.close()
 
 
 def _lookback_filter(x: torch.Tensor, threshold: int = DEFAULT_THRESHOLD,

@@ -40,7 +40,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, trace
 from .primitives import as_u32, wrap_i32
 
 MAX_HIST_HI_BINS = 128  # 2^14 bins: 64 KB of shared memory per block
@@ -129,11 +129,16 @@ def merge_bytes(hi_bins: int, n: int) -> int:
 
 
 def histogram(k: torch.Tensor, hi_bins: int = 128) -> torch.Tensor:
-    nbins = _check_hi_bins("histogram", hi_bins, MAX_HIST_HI_BINS)
-    device = _build.check_vectors("histogram", k)
-    if device.type == "cpu":
-        return histogram_plain(k, hi_bins)
-    return launch_histogram(k, nbins, *histogram_plan(hi_bins, k.numel()))
+    sp = trace.begin("kernel.histogram")
+    try:
+        nbins = _check_hi_bins("histogram", hi_bins, MAX_HIST_HI_BINS)
+        device = _build.check_vectors("histogram", k)
+        if device.type == "cpu":
+            return histogram_plain(k, hi_bins)
+        return launch_histogram(k, nbins, *histogram_plan(hi_bins, k.numel()))
+    finally:
+        if sp:
+            sp.close()
 
 
 @functools.lru_cache(maxsize=64)

@@ -24,11 +24,11 @@ import numpy as np
 import torch
 
 from . import (
-    branches,
     chunk_stats_cuda,
     compact_cuda,
     filter_cuda,
     scan_tail_cuda,
+    trace,
 )
 from .chunk_stats import chunk_stats
 from .filter_cuda import DEFAULT_THRESHOLD  # x < 5 (scan/scan.cl:14)
@@ -187,85 +187,116 @@ def filter_sparse(
     Non-int32 input and n >= 2^30 (position sentinel headroom) take the
     general engine: the ``filter`` kernel on the card (int32 only; other
     dtypes raise there) and ``filter_two_pass`` on the CPU.
+
+    Each phase is a span (``ops/trace.py``): ``filter_sparse.phase_a``,
+    ``.tail``, ``.caps`` (the read), ``.phase_b``, ``.order``, ``.emit``,
+    or ``.general``; the ``stats_pallas`` path has the same phases.
     """
     n = x.shape[0]
     assert chunk == 128, "filter_sparse chunks are 128 rows"
     if capacity is None:
         capacity = n
-    if x.dtype != torch.int32 or n >= (1 << 30):
-        branches.take("filter_sparse", "general")
-        if x.device.type == "cuda":
-            return filter_cuda.filter(x, threshold, capacity)
-        return filter_two_pass(x, threshold, capacity)
-    if cap_mc is None:
-        # expected multi-match chunks at the benchmark selectivity s = 4e-4
-        # are (chunk·s)²/2 per chunk ≈ n/2^17; the caps scale with n
-        cap_mc = max(512, n >> 15)
-    if cap_single is None:
-        cap_single = max(16384, n >> 10)
-    if cap_melems is None:
-        cap_melems = max(4096, n >> 12)
-    thr = int(threshold)
-    device = x.device
+    sp = trace.begin("filter_sparse")
+    try:
+        if x.dtype != torch.int32 or n >= (1 << 30):
+            trace.take("filter_sparse", "general")
+            if sp:
+                sp.next("filter_sparse.general")
+            if x.device.type == "cuda":
+                return filter_cuda.filter(x, threshold, capacity)
+            return filter_two_pass(x, threshold, capacity)
+        if cap_mc is None:
+            # expected multi-match chunks at the benchmark selectivity
+            # s = 4e-4 are (chunk·s)²/2 per chunk ≈ n/2^17; the caps scale
+            # with n
+            cap_mc = max(512, n >> 15)
+        if cap_single is None:
+            cap_single = max(16384, n >> 10)
+        if cap_melems is None:
+            cap_melems = max(4096, n >> 12)
+        thr = int(threshold)
+        device = x.device
 
-    pad = (-n) % chunk
-    # padded rows hold the threshold, so they never match
-    xp = torch.cat([x, torch.full((pad,), thr, dtype=torch.int32,
-                                  device=device)]) if pad else x
-    nch = xp.shape[0] // chunk
-    x2 = xp.view(nch, chunk)
-    if stats_pallas is None:
-        stat, base = chunk_stats_cuda.chunk_stats(x2, thr)
-        spos, sval, mids, mbase, n_single, n_multi = (
-            scan_tail_cuda.scan_tail_streams(stat, base, thr, cap_single,
-                                             cap_mc)
-        )
-    else:
-        # the JAX package's round-2 path: the stats from the kernel or from
-        # plain torch, then one compaction per chunk class
-        stats = chunk_stats_cuda.chunk_stats_pallas if stats_pallas \
-            else chunk_stats
-        stat, base = stats(x2, thr)
-        cnt, vsw = stat >> 9, stat & 511
-        single = (cnt == 1) & (vsw >= 1) & (vsw <= 255)
-        multi = (cnt >= 1) & ~single
-        (spos, sval), n_single = compact_cuda.compact_mask(
-            single, (base, thr - vsw), cap_single)
-        spos = torch.where(_iota(cap_single, device) < n_single, spos, _BIG)
-        (mids,), n_multi = compact_cuda.compact_mask(
-            multi, (_iota(nch, device),), cap_mc)
-        mbase = base[torch.where(_iota(cap_mc, device) < n_multi, mids, 0)]
-    total = base[-1] + (stat[-1] >> 9)
-    n_melems = total - n_single
-    if not assume_sparse:
-        ok = (
-            (n_single <= cap_single)
-            & (n_multi <= cap_mc)
-            & (n_melems <= cap_melems)
-        )
-        # threshold - 512 must not wrap in the window encoding. The one host
-        # read of this path: eager torch has no lax.cond.
-        if thr <= -(2**31) + 512 or not bool(ok):
-            branches.take("filter_sparse", "general")
-            return filter_cuda.filter(x, thr, capacity)
-    branches.take("filter_sparse", "sparse")
+        if sp:
+            sp.next("filter_sparse.phase_a")
+        pad = (-n) % chunk
+        # padded rows hold the threshold, so they never match
+        xp = torch.cat([x, torch.full((pad,), thr, dtype=torch.int32,
+                                      device=device)]) if pad else x
+        nch = xp.shape[0] // chunk
+        x2 = xp.view(nch, chunk)
+        if stats_pallas is None:
+            stat, base = chunk_stats_cuda.chunk_stats(x2, thr)
+            if sp:
+                sp.next("filter_sparse.tail")
+            spos, sval, mids, mbase, n_single, n_multi = (
+                scan_tail_cuda.scan_tail_streams(stat, base, thr, cap_single,
+                                                 cap_mc)
+            )
+        else:
+            # the JAX package's round-2 path: the stats from the kernel or
+            # from plain torch, then one compaction per chunk class
+            stats = chunk_stats_cuda.chunk_stats_pallas if stats_pallas \
+                else chunk_stats
+            stat, base = stats(x2, thr)
+            if sp:
+                sp.next("filter_sparse.tail")
+            cnt, vsw = stat >> 9, stat & 511
+            single = (cnt == 1) & (vsw >= 1) & (vsw <= 255)
+            multi = (cnt >= 1) & ~single
+            (spos, sval), n_single = compact_cuda.compact_mask(
+                single, (base, thr - vsw), cap_single)
+            spos = torch.where(_iota(cap_single, device) < n_single, spos,
+                               _BIG)
+            (mids,), n_multi = compact_cuda.compact_mask(
+                multi, (_iota(nch, device),), cap_mc)
+            mbase = base[torch.where(_iota(cap_mc, device) < n_multi, mids,
+                                     0)]
+        total = base[-1] + (stat[-1] >> 9)
+        n_melems = total - n_single
+        if not assume_sparse:
+            if sp:
+                sp.next("filter_sparse.caps")
+            ok = (
+                (n_single <= cap_single)
+                & (n_multi <= cap_mc)
+                & (n_melems <= cap_melems)
+            )
+            # threshold - 512 must not wrap in the window encoding. The one
+            # host read of this path: eager torch has no lax.cond.
+            if thr <= -(2**31) + 512 or not trace.read(
+                    ok, "filter_sparse.caps"):
+                trace.take("filter_sparse", "general")
+                if sp:
+                    sp.next("filter_sparse.general")
+                return filter_cuda.filter(x, thr, capacity)
+        trace.take("filter_sparse", "sparse")
 
-    valid_m = _iota(cap_mc, device) < n_multi
-    rows = x2[torch.where(valid_m, mids, 0)]  # (cap_mc, chunk) row gather
-    gm = (rows < thr) & valid_m[:, None]
-    gpos = torch.where(gm, mbase[:, None] + exclusive_cumsum(
-        gm.to(torch.int32), 1), _BIG)
-    (mpos, mval), _ = compact_cuda.compact_mask(
-        gm.view(-1), (gpos.view(-1), rows.reshape(-1)), cap_melems)
-    mpos = torch.where(_iota(cap_melems, device) < n_melems, mpos, _BIG)
-    all_pos = torch.cat([spos, mpos])
-    all_val = torch.cat([sval, mval])
-    # valid positions are unique and the sentinel rows are garbage, so an
-    # unstable sort is exact; the emit gathers the values in sorted order
-    order = torch.sort(all_pos).indices
-    k = min(capacity, all_val.shape[0])
-    out = compact_cuda.emit_prefix(all_val, capacity, order[:k])
-    return out, total
+        if sp:
+            sp.next("filter_sparse.phase_b")
+        valid_m = _iota(cap_mc, device) < n_multi
+        rows = x2[torch.where(valid_m, mids, 0)]  # (cap_mc, chunk) row gather
+        gm = (rows < thr) & valid_m[:, None]
+        gpos = torch.where(gm, mbase[:, None] + exclusive_cumsum(
+            gm.to(torch.int32), 1), _BIG)
+        (mpos, mval), _ = compact_cuda.compact_mask(
+            gm.view(-1), (gpos.view(-1), rows.reshape(-1)), cap_melems)
+        mpos = torch.where(_iota(cap_melems, device) < n_melems, mpos, _BIG)
+        if sp:
+            sp.next("filter_sparse.order")
+        all_pos = torch.cat([spos, mpos])
+        all_val = torch.cat([sval, mval])
+        # valid positions are unique and the sentinel rows are garbage, so
+        # an unstable sort is exact; the emit gathers the values in sorted
+        # order
+        order = torch.sort(all_pos).indices
+        if sp:
+            sp.next("filter_sparse.emit")
+        k = min(capacity, all_val.shape[0])
+        return compact_cuda.emit_prefix(all_val, capacity, order[:k]), total
+    finally:
+        if sp:
+            sp.close()
 
 
 def filter_oracle(x, threshold: int = DEFAULT_THRESHOLD):

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, compact_cuda
+from . import _build, compact_cuda, trace
 from .primitives import compact_multi
 
 BIG = 0x7FFFFFFF  # position sentinel: sorts after every real position
@@ -100,27 +100,33 @@ def _lookback_tail(stat, base, threshold: int, cap_single: int, cap_mc: int,
 
 def scan_tail_streams(stat, base, threshold: int, cap_single: int,
                       cap_mc: int):
-    device, thr, cap_single, cap_mc = _check(stat, base, threshold,
-                                             cap_single, cap_mc)
-    if device.type == "cpu":
-        return scan_tail_streams_plain(stat, base, thr, cap_single, cap_mc)
-    nch = stat.numel()
+    sp = trace.begin("kernel.scan_tail_streams")
+    try:
+        device, thr, cap_single, cap_mc = _check(stat, base, threshold,
+                                                 cap_single, cap_mc)
+        if device.type == "cpu":
+            return scan_tail_streams_plain(stat, base, thr, cap_single, cap_mc)
+        nch = stat.numel()
 
-    def empty(k):
-        return torch.empty(k, dtype=torch.int32, device=device)
+        def empty(k):
+            return torch.empty(k, dtype=torch.int32, device=device)
 
-    spos, sval, mids, mbase = (empty(cap_single), empty(cap_single),
-                               empty(cap_mc), empty(cap_mc))
-    counts = empty(2)
-    # two counters and the status words: zero when made, left zero
-    scratch = _build.stream_scratch("compact", device,
-                                    _build.compact_scratch_words(nch, 2))
-    _build.launch("dbt_scan_tail_streams", device, stat.data_ptr(),
-                  base.data_ptr(), nch, thr, spos.data_ptr(), sval.data_ptr(),
-                  cap_single, mids.data_ptr(), mbase.data_ptr(), cap_mc,
-                  counts.data_ptr(), scratch.data_ptr())
-    _build.LAUNCHES["scan_tail_streams"] += 1
-    return spos, sval, mids, mbase, counts[0], counts[1]
+        spos, sval, mids, mbase = (empty(cap_single), empty(cap_single),
+                                   empty(cap_mc), empty(cap_mc))
+        counts = empty(2)
+        # two counters and the status words: zero when made, left zero
+        scratch = _build.stream_scratch("compact", device,
+                                        _build.compact_scratch_words(nch, 2))
+        _build.launch("dbt_scan_tail_streams", device, stat.data_ptr(),
+                      base.data_ptr(), nch, thr, spos.data_ptr(),
+                      sval.data_ptr(), cap_single, mids.data_ptr(),
+                      mbase.data_ptr(), cap_mc, counts.data_ptr(),
+                      scratch.data_ptr())
+        _build.LAUNCHES["scan_tail_streams"] += 1
+        return spos, sval, mids, mbase, counts[0], counts[1]
+    finally:
+        if sp:
+            sp.close()
 
 
 # scan_tail_compact's single-step merge tree holds at most 128 rows of 2048

@@ -25,7 +25,7 @@ from typing import Callable, Union
 import numpy as np
 import torch
 
-from . import branches, cumsum_cuda, hist_cuda
+from . import cumsum_cuda, hist_cuda, trace
 
 _RANGE_BITS = 14
 _NARROW_BINS = 80 * 128  # the benchmark's [1, 10000] spans land here
@@ -61,11 +61,16 @@ def _expand_runs(
     return cumsum_cuda.cumsum(s[:n], carry_init=carry)
 
 
+def _shifted_histogram(
+    x: torch.Tensor, minv: torch.Tensor, hi_bins: int = 128
+) -> torch.Tensor:
+    return histogram_dispatch((x - minv).to(torch.int32), hi_bins=hi_bins)
+
+
 def _sort_counting_shifted(
     x: torch.Tensor, minv: torch.Tensor, hi_bins: int = 128
 ) -> torch.Tensor:
-    k = (x - minv).to(torch.int32)
-    counts = histogram_dispatch(k, hi_bins=hi_bins)
+    counts = _shifted_histogram(x, minv, hi_bins=hi_bins)
     return _expand_runs(counts, x.shape[0], shift=minv).to(x.dtype)
 
 
@@ -79,19 +84,39 @@ def sort_auto(x: torch.Tensor) -> torch.Tensor:
     """Range-adaptive sort: the counting sort when the span fits 80·128 or
     2^14 bins, ``torch.sort`` otherwise. The JAX package decides on the
     device with ``lax.cond``; eager PyTorch reads the span on the host,
-    which costs one synchronisation."""
+    which costs one synchronisation. Its phases are spans
+    (``ops/trace.py``): ``sort_auto.span`` (min, max and the two reads),
+    then ``sort_auto.histogram`` and ``sort_auto.expand``, or
+    ``sort_auto.torch_sort``."""
     if x.shape[0] == 0:
         return x
-    minv = torch.min(x)
-    span = int(torch.max(x)) - int(minv)
-    if span < _NARROW_BINS:
-        branches.take("sort_auto", "hi80")
-        return _sort_counting_shifted(x, minv, hi_bins=80)
-    if span < (1 << _RANGE_BITS):
-        branches.take("sort_auto", "hi128")
-        return _sort_counting_shifted(x, minv, hi_bins=128)
-    branches.take("sort_auto", "torch.sort")
-    return torch.sort(x).values
+    sp = trace.begin("sort_auto")
+    try:
+        if sp:
+            sp.next("sort_auto.span")
+        minv = torch.min(x)
+        span = (trace.read(torch.max(x), "sort_auto.max")
+                - trace.read(minv, "sort_auto.min"))
+        if span < (1 << _RANGE_BITS):
+            if span < _NARROW_BINS:
+                trace.take("sort_auto", "hi80")
+                hi_bins = 80
+            else:
+                trace.take("sort_auto", "hi128")
+                hi_bins = 128
+            if sp:
+                sp.next("sort_auto.histogram")
+            counts = _shifted_histogram(x, minv, hi_bins=hi_bins)
+            if sp:
+                sp.next("sort_auto.expand")
+            return _expand_runs(counts, x.shape[0], shift=minv).to(x.dtype)
+        trace.take("sort_auto", "torch.sort")
+        if sp:
+            sp.next("sort_auto.torch_sort")
+        return torch.sort(x).values
+    finally:
+        if sp:
+            sp.close()
 
 
 def _counting_engine(hi_bins: int) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -35,9 +35,13 @@ the join's probe (found, counts and the start of each key's rows, by
 ``searchsorted``), its ``id_buffer`` (a permutation of the rows grouped by
 key) and its flags (recomputed from the key counts), the sort's column
 (``np.sort``). The
-branch taken is read from ``ops.branches.TAKEN`` (the join's from its
+branch taken is read from ``ops.trace.TAKEN`` (the join's from its
 flags) and must be the one the host predicts, which must be the branch
-the case is there to cross, where it names one. On the card the engine runs
+the case is there to cross, where it names one. The reads back to the
+host are read from ``ops.trace.READS`` and must be those ``READS``
+documents (``expected_reads``): the sort's span two, the checked filter's
+caps one, none where the threshold lies within 512 of INT32_MIN or the
+input is not int32, and none counted for the join. On the card the engine runs
 a second time, timed by CUDA events, and every kernel of the branch must
 have launched in the first call (``_build.LAUNCHES``).
 ``tests/test_torch_cliffs.py`` runs every case on the CPU beside the JAX
@@ -52,7 +56,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops import _build, branches, csr_join, scan, sort
+from ..ops import _build, csr_join, scan, sort, trace
 
 SEED = 12345  # the JAX tests' rng fixture (tests/conftest.py)
 
@@ -97,20 +101,24 @@ class Outcome(NamedTuple):
     launched: Dict[str, int]
     missing: Tuple[str, ...]  # kernels of the branch not launched
     out: Any  # the engine's outputs (tensors on the device)
+    reads: Dict[str, int]  # ``trace.READS`` of the call, by site
+    expected_reads: Dict[str, int]
 
     @property
     def ok(self) -> bool:
         return self.exact and self.branch == self.expected_branch \
-            and not self.missing
+            and not self.missing and self.reads == self.expected_reads
 
     def line(self) -> str:
         ms = "not timed" if self.ms is None else f"{self.ms!r} ms"
         return (f"cliff {self.name}: branch {self.branch} (host predicts "
                 f"{self.expected_branch}), count {self.count}, "
                 f"{'exact' if self.exact else 'NOT EXACT: ' + self.why}, "
-                f"{ms}, launched {self.launched}"
+                f"{ms}, launched {self.launched}, reads {self.reads}"
                 + (f", NOT LAUNCHED {list(self.missing)}" if self.missing
-                   else ""))
+                   else "")
+                + (f", READS EXPECTED {self.expected_reads}"
+                   if self.reads != self.expected_reads else ""))
 
 
 # -- the cases ----------------------------------------------------------------
@@ -338,7 +346,7 @@ def call(case: Case, data: dict, device: torch.device):
 def judge(case: Case, data: dict, out) -> Tuple[str, str, int, str]:
     """(branch taken, branch the host predicts, count, first disagreement
     or "") of one call's outputs; the branch of the filter and the sort is
-    filled in by ``run`` from ``branches.TAKEN``."""
+    filled in by ``run`` from ``trace.TAKEN``."""
     if case.engine == "filter_sparse":
         x, thr = data["x"], data["threshold"]
         got, count = out
@@ -373,20 +381,37 @@ def judge(case: Case, data: dict, out) -> Tuple[str, str, int, str]:
     return "", sort_branch(x), x.shape[0], why
 
 
+def expected_reads(case: Case, data: dict) -> Dict[str, int]:
+    """The reads back to the host one call of ``case`` makes, by
+    ``trace.READS`` site, as that counter's docstring documents them."""
+    if case.engine == "sort_auto":
+        n = data["x"].shape[0]
+        return {"sort_auto.max": 1, "sort_auto.min": 1} if n else {}
+    if case.engine == "filter_sparse":
+        x, thr = data["x"], int(data["threshold"])
+        checked = x.dtype == np.int32 and x.shape[0] < (1 << 30) \
+            and thr > -(2**31) + 512
+        return {"filter_sparse.caps": 1} if checked else {}
+    return {}
+
+
 def run(case: Case, device: torch.device) -> Outcome:
     """One case on ``device``, checked against its host oracle (see the
     module's docstring)."""
     data = inputs(case)
     fn = call(case, data, device)
     launches_before = dict(_build.LAUNCHES)
-    taken_before = dict(branches.TAKEN)
+    taken_before = dict(trace.TAKEN)
+    reads_before = dict(trace.READS)
     out = fn()
     if device.type == "cuda":
         torch.cuda.synchronize()
     launched = {k: v - launches_before[k] for k, v in _build.LAUNCHES.items()
                 if v > launches_before[k]}
-    taken = [k for k, v in branches.TAKEN.items()
+    taken = [k for k, v in trace.TAKEN.items()
              if v > taken_before.get(k, 0)]
+    reads = {k: v - reads_before.get(k, 0) for k, v in trace.READS.items()
+             if v > reads_before.get(k, 0)}
     branch, expected, count, why = judge(case, data, out)
     if case.branch is not None and expected != case.branch and not why:
         why = f"the host predicts {expected}, not the case's {case.branch}"
@@ -404,4 +429,4 @@ def run(case: Case, device: torch.device) -> Outcome:
         end.synchronize()
         ms = start.elapsed_time(end)
     return Outcome(case.name, branch, expected, count, why == "", why, ms,
-                   launched, missing, out)
+                   launched, missing, out, reads, expected_reads(case, data))

@@ -31,7 +31,7 @@ import numpy as np
 from dwarf_bench_tpu.ops import csr_join as jax_join
 from dwarf_bench_tpu.ops import scan as jax_scan
 from dwarf_bench_tpu.ops import sort as jax_sort
-from dwarf_bench_tpu_torch.ops import branches, scan
+from dwarf_bench_tpu_torch.ops import scan, trace
 from dwarf_bench_tpu_torch.utils import cliffs
 
 CPU = torch.device("cpu")
@@ -148,10 +148,10 @@ def test_cap_boundaries_hold_then_trip():
 
 
 def test_branch_counter_counts_each_call():
-    branches.TAKEN.clear()
+    trace.TAKEN.clear()
     x = torch.arange(1000, dtype=torch.int32)
     scan.filter_sparse(x, 5)
     scan.filter_sparse(x, 5, cap_mc=0)
     scan.filter_sparse(x.to(torch.int64), 5)
-    assert branches.TAKEN == {"filter_sparse:sparse": 1,
-                              "filter_sparse:general": 2}
+    assert trace.TAKEN == {"filter_sparse:sparse": 1,
+                           "filter_sparse:general": 2}

@@ -207,7 +207,7 @@ def test_assume_sparse_reads_nothing_back(rng, monkeypatch):
     assert reads == []
     with pytest.raises(AssertionError, match="host read"):
         scan.filter_sparse(x)
-    assert reads == ["__bool__"]
+    assert reads == ["item"]  # ops/trace.read
 
 
 def test_stats_pallas_assume_sparse_reads_nothing_back(rng, monkeypatch):
