@@ -51,10 +51,16 @@ with nvcc, then:
      kernels and no memset for the scan's phase A (chunk_stats, cumsum);
      the three compactions run back to back on one stream and three times
      on each of two streams;
+     expand_runs at Radix's 2^22 rows and on the benchmark's small grid
+     (256 ... 65536 rows), on empty leading and trailing bins, one bin,
+     runs of one row and its tile boundaries, under shifts that wrap and
+     explicit grids, on a non-default stream under CUDA's sync debug mode,
+     one kernel and no memset a call;
      and, at the sweeps' largest size (2^27 rows), the hi80 histogram
-     (whose plan must store 32-bit copies), Radix's run-expansion cumsum
-     with an int carry, chunk_stats and scan_tail_streams over 2^20 chunks,
-     each against its twin and timed beside it;
+     (whose plan must store 32-bit copies), expand_runs at hi80 and hi128,
+     the cumsum over a column of Radix's bin starts with an int carry,
+     chunk_stats and scan_tail_streams over 2^20 chunks, each against its
+     twin and timed beside it;
   3. drives the dwarfs through the CLI entry point with ``--device=gpu``
      (Radix 2^22, GroupBy 2^22 with G=64, GroupBy 2^20 with G=2^16,
      JoinOmnisci 2^20, TwoPassScan, DPLScan and DPLScanCuda 2^24,
@@ -159,6 +165,10 @@ KERNELS = {
                   "dwarf_bench_tpu/ops/hist_pallas.py:119"),
     "cumsum": ("dwarf_bench_tpu_torch/csrc/cumsum.cu",
                "dwarf_bench_tpu/ops/cumsum_pallas.py:35"),
+    # the counting sort's run expansion, in place of the scatter and
+    # cumsum_pallas of _expand_runs
+    "expand_runs": ("dwarf_bench_tpu_torch/csrc/expand_runs.cu",
+                    "dwarf_bench_tpu/ops/sort.py:79"),
     "groupby_small": ("dwarf_bench_tpu_torch/csrc/groupby.cu",
                       "dwarf_bench_tpu/ops/groupby_pallas.py:307"),
     "weighted_histogram": ("dwarf_bench_tpu_torch/csrc/hist.cu",
@@ -247,7 +257,7 @@ MERGE_KERNELS = ("merge_bitonic", "merge_fill", "compact_mask")
 
 DWARF_RUNS = [
     # (dwarf, rows, extra CLI flags, kernels its path must launch)
-    ("Radix", 1 << 22, [], ("histogram", "cumsum")),
+    ("Radix", 1 << 22, [], ("histogram", "expand_runs")),
     ("GroupBy", 1 << 22, ["--groups_count=64"], ("groupby_small",)),
     ("GroupBy", 1 << 20, ["--groups_count=65536"], ("weighted_histogram",)),
     ("JoinOmnisci", 1 << 20, [], ("histogram",)),
@@ -337,6 +347,7 @@ def phase_kernels(dev):
         compact_cuda,
         csr_join,
         cumsum_cuda,
+        expand_runs_cuda,
         filter_cuda,
         groupby_cuda,
         hist_cuda,
@@ -493,7 +504,7 @@ def phase_kernels(dev):
         t(rng.integers(-100, 16384 + 100, 1_000_003)), 128)
     histogram_oversized_plans()
 
-    # -- cumsum (radix run expansion at 2^22) ---------------------------
+    # -- cumsum (at 2^22 over a 1-hot column of Radix's bin starts) ------
     c, cp = cumsum_cuda.cumsum, cumsum_cuda.cumsum_plain
     n = 1 << 22
     counts = np.bincount(radix_k, minlength=80 * 128)
@@ -502,10 +513,10 @@ def phase_kernels(dev):
     def torch_cumsum(x, _):
         return torch.cumsum(x, 0, dtype=torch.int32)
 
-    run("cumsum", "radix expansion n=2^22", c, cp, t(s), -1, timed=True,
+    run("cumsum", "bin starts marked n=2^22", c, cp, t(s), -1, timed=True,
         cost=lambda res: (4 * (2 * n + 1), n), library=torch_cumsum,
         cold=True)
-    run("cumsum", "radix expansion n=2^22, tensor carry", c, cp, t(s),
+    run("cumsum", "bin starts marked n=2^22, tensor carry", c, cp, t(s),
         t([-1]), timed=True, cost=lambda res: (4 * (2 * n + 1), n),
         library=torch_cumsum, cold=True)
     run("cumsum", "n=1", c, cp, t([7]), 0)
@@ -552,6 +563,77 @@ def phase_kernels(dev):
           "cumsum int carry under sync debug mode: differs from its twin")
     print("kernel cumsum [int carry under sync debug mode error]: no host "
           "copy or sync, exact", flush=True)
+
+    # -- expand_runs (Radix's run expansion at 2^22, the small grid) -----
+    er, erp = expand_runs_cuda.expand_runs, expand_runs_cuda.expand_runs_plain
+    radix_counts = t(counts)
+    minv = t([1])
+
+    def expand_cost(n_rows, nbins):
+        """The sorted rows written and the counts read; a compare a row."""
+        return lambda res: (4 * (n_rows + nbins), n_rows)
+
+    def repeat_bins(nbins):
+        """The library call: the bins repeated by the counts (no shift)."""
+        bins = torch.arange(nbins, dtype=torch.int32, device=dev)
+        return lambda cnt, n_rows, _: torch.repeat_interleave(
+            bins, cnt, output_size=n_rows)
+
+    run("expand_runs", "radix hi80 n=2^22, tensor shift", er, erp,
+        radix_counts, n, minv, timed=True, cost=expand_cost(n, 80 * 128),
+        library=repeat_bins(80 * 128), cold=True, graph=True,
+        library_graph=False)
+    run("expand_runs", "radix hi80 n=2^22, int shift", er, erp, radix_counts,
+        n, 1)
+    for k in range(8, 17):  # the benchmark's small grid
+        small = np.bincount(make_random(1 << k, seed=k) - 1,
+                            minlength=80 * 128)
+        run("expand_runs", f"small grid n=2^{k}", er, erp, t(small), 1 << k,
+            minv)
+    nb80 = 80 * 128
+    edges = {
+        "bins 0-2999 and 7000- empty": rng.integers(3000, 7000, 100_003),
+        "one bin holds every row": np.full(1_000_001, 9000),
+        "the last bin only": np.full(77_777, nb80 - 1),
+        "10240 runs of one row": np.arange(nb80),
+        "10240 bins over 65536 rows": np.concatenate(
+            [np.arange(nb80), rng.integers(0, nb80, 65536 - nb80)]),
+        "n=1": np.array([4321]),
+        "n=8191": rng.integers(0, nb80, 8191),
+        "n=8192 (one tile)": rng.integers(0, nb80, 8192),
+        "n=8193": rng.integers(0, nb80, 8193),
+    }
+    for label, keys in edges.items():
+        cnt = t(np.bincount(keys, minlength=nb80))
+        for shift in (i32min, i32max, t([i32max])):
+            run("expand_runs", f"{label}, shift {shift!r}", er, erp, cnt,
+                keys.size, shift)
+        for blocks in (1, 3, 1000):
+            run("expand_runs", f"{label}, {blocks} blocks",
+                lambda c, rows, shift, b=blocks: expand_runs_cuda.
+                launch_expand_runs(c, rows, shift, b), erp, cnt, keys.size, -7)
+    ops = device_ops(er, radix_counts, n, minv)
+    print(f"kernel expand_runs [radix hi80 n=2^22]: kernels per call "
+          f"{ops[0]!r}, memsets {ops[1]!r}", flush=True)
+    check(ops == (1, 0), f"expand_runs: {ops} kernels and memsets a call, "
+                         "expected 1 and 0")
+
+    def expand_on_side_stream(cnt, n_rows, shift):
+        """The kernel under ``torch.cuda.stream(side)`` on counts written
+        on that stream behind a sleep, reading nothing back to the host."""
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(20_000_000)
+            late = cnt + 0
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = er(late, n_rows, shift)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return res
+
+    run("expand_runs", "under a non-default stream and sync debug mode",
+        expand_on_side_stream, erp, radix_counts, n, minv)
 
     # -- groupby_small (G=64 at 2^22) -----------------------------------
     g, gp = groupby_cuda.groupby_small, groupby_cuda.groupby_small_plain
@@ -1268,10 +1350,22 @@ def phase_kernels(dev):
         cold=True, graph=True, library_graph=False)
     del k27
     counts27 = np.bincount(x27 - 1, minlength=80 * 128)
+    run("expand_runs", "radix hi80 n=2^27, tensor shift", er, erp,
+        t(counts27), big, minv, timed=True, cost=expand_cost(big, 80 * 128),
+        library=repeat_bins(80 * 128), cold=True, graph=True,
+        library_graph=False)
+    counts27_128 = np.bincount(rng.integers(0, 128 * 128, big),
+                               minlength=128 * 128)
+    run("expand_runs", "hi128 n=2^27, tensor shift", er, erp, t(counts27_128),
+        big, minv, timed=True, cost=expand_cost(big, 128 * 128),
+        library=repeat_bins(128 * 128), graph=True, library_graph=False)
+    del counts27_128
+    # the cumsum over the marker column the sort's expansion scanned
+    # before it had a kernel of its own: a 1-hot column of Radix's bin starts
     starts27 = np.cumsum(counts27) - counts27
     s27 = t(np.bincount(np.minimum(starts27, big), minlength=big + 1)[:big])
-    run("cumsum", "radix expansion n=2^27, int carry", c, cp, s27, -1,
-        timed=True, cost=lambda res: (4 * (2 * big + 1), big),
+    run("cumsum", "n=2^27 (Radix's bin starts marked), int carry", c, cp,
+        s27, -1, timed=True, cost=lambda res: (4 * (2 * big + 1), big),
         library=torch_cumsum, cold=True, graph=True)
     del s27
     nch27 = big // 128
@@ -2037,10 +2131,10 @@ def script_names(dev):
 
 
 # the kernels the headline bench's components and extras must launch
-BENCH_KERNELS = ("histogram", "cumsum", "groupby_small", "weighted_histogram",
-                 "chunk_stats", "scan_tail_streams", "compact_mask",
-                 "emit_prefix", "filter", "reduce_sum", "merge_bitonic",
-                 "merge_fill")
+BENCH_KERNELS = ("histogram", "expand_runs", "cumsum", "groupby_small",
+                 "weighted_histogram", "chunk_stats", "scan_tail_streams",
+                 "compact_mask", "emit_prefix", "filter", "reduce_sum",
+                 "merge_bitonic", "merge_fill")
 
 
 def phase_bench(dev):
@@ -2367,13 +2461,13 @@ def phase_parallel(dev):
     return launches
 
 
-# the kernels the scripts' runs must launch: Radix's (histogram, cumsum),
-# the scans' (phase A, the tail, the compactions, the emit), the hash
-# probes' merge (merge_bitonic, merge_fill, compact_mask), and the scaling
-# harness's dense join (histogram) and group-by (groupby_small)
-SCRIPT_KERNELS = ("histogram", "cumsum", "chunk_stats", "scan_tail_streams",
-                  "compact_mask", "emit_prefix", "merge_bitonic",
-                  "merge_fill", "groupby_small")
+# the kernels the scripts' runs must launch: Radix's (histogram,
+# expand_runs), the scans' (phase A, the tail, the compactions, the emit),
+# the hash probes' merge (merge_bitonic, merge_fill, compact_mask), and the
+# scaling harness's dense join (histogram) and group-by (groupby_small)
+SCRIPT_KERNELS = ("histogram", "expand_runs", "cumsum", "chunk_stats",
+                  "scan_tail_streams", "compact_mask", "emit_prefix",
+                  "merge_bitonic", "merge_fill", "groupby_small")
 
 
 def _script(args, timeout, env=None, cwd=None):

@@ -31,7 +31,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -60,6 +60,7 @@ _SIGNATURES = {
         [_P, _P, _I64, _P] + [_I32] * 7 + [_P, _I64, _P], ctypes.c_int),
     "dbt_cumsum": ([_P, _I64, _P, _I32, _P, _P, _P], ctypes.c_int),
     "dbt_cumsum_scratch": ([_I64], _I64),
+    "dbt_expand_runs": ([_P, _I32, _I64, _P, _I32, _P, _I32, _P], ctypes.c_int),
     "dbt_compact_scratch": ([_I64, _I32], _I64),
     "dbt_filter": ([_P, _I64, _I32, _P, _I64, _P, _P, _P], ctypes.c_int),
     "dbt_compact_mask": (
@@ -94,6 +95,8 @@ _SIGNATURES = {
 LAUNCHES: Dict[str, int] = {
     "histogram": 0,
     "cumsum": 0,
+    # the counting sort's run expansion (csrc/expand_runs.cu)
+    "expand_runs": 0,
     "groupby_small": 0,
     "weighted_histogram": 0,
     "scan_tail_streams": 0,
@@ -316,6 +319,43 @@ def check_vectors(op: str, *tensors: torch.Tensor) -> torch.device:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{op}: unsupported device {device}")
     return device
+
+
+# an int32 operand a kernel takes by value (an int) or reads on the card (a
+# one-element int32 tensor on the kernel's device)
+Int32 = Union[int, torch.Tensor]
+
+
+def _check_int32_tensor(op: str, name: str, value: torch.Tensor,
+                        device: torch.device) -> None:
+    if value.numel() != 1 or value.dtype != torch.int32:
+        raise ValueError(
+            f"{op}: {name} must be an int or a one-element int32 tensor, "
+            f"got {value.dtype} of shape {tuple(value.shape)}")
+    if value.device != device:
+        raise ValueError(f"{op}: {name} on {value.device}, input on {device}")
+
+
+def pack_int32(op: str, name: str, value: Int32,
+               device: torch.device) -> Tuple[Optional[torch.Tensor], int]:
+    """A kernel's (tensor, value) of ``value``: a tensor is read on the card
+    (value 0 unused); an int is wrapped mod 2^32 to an int32, as
+    ``wrap_i32`` does, and passed by value (tensor None), so no call copies
+    anything to the card or waits for it."""
+    if isinstance(value, torch.Tensor):
+        _check_int32_tensor(op, name, value, device)
+        return value.reshape(1).contiguous(), 0
+    return None, (int(value) + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def int32_tensor(op: str, name: str, value: Int32,
+                 device: torch.device) -> torch.Tensor:
+    """``value`` as a one-element int32 tensor on ``device`` (an int wrapped
+    as ``pack_int32`` wraps it), for the plain twins."""
+    tensor, wrapped = pack_int32(op, name, value, device)
+    if tensor is None:
+        tensor = torch.tensor([wrapped], dtype=torch.int32, device=device)
+    return tensor
 
 
 def check_int32(op: str, name: str, value) -> int:

@@ -7,15 +7,16 @@ Engines:
 
   * the counting sort (``sort_counting``, ``_sort_counting_shifted``) for
     columns whose span after a min-shift is below 2^14 (the benchmark's
-    uniform [1, 10000] columns): a histogram kernel (``hist_cuda``), a
-    scatter of the 2^14 bin starts, and one streaming cumsum kernel
-    (``cumsum_cuda``) that expands the runs. The input is never moved.
+    uniform [1, 10000] columns): a histogram kernel (``hist_cuda``) and
+    one kernel that writes each sorted row from the bin starts
+    (``expand_runs_cuda``). The input is never moved.
   * ``torch.sort`` where the JAX package leaves the sort to XLA
     (``sort_auto``'s wide-span branch).
 
 The JAX package short-circuits the CPU backend to ``lax.sort`` because its
 one-hot-matmul histogram is slow there. The port's CPU twins are
-``bincount`` and ``cumsum``, so every device runs the same pipeline.
+``bincount`` and ``repeat_interleave``, so every device runs the same
+pipeline.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Callable, Union
 import numpy as np
 import torch
 
-from . import cumsum_cuda, hist_cuda, trace
+from . import expand_runs_cuda, hist_cuda, trace
 
 _RANGE_BITS = 14
 _NARROW_BINS = 80 * 128  # the benchmark's [1, 10000] spans land here
@@ -42,23 +43,12 @@ def _expand_runs(
 ) -> torch.Tensor:
     """Sorted bin-index column (plus ``shift``) from a histogram:
     out[i] = shift + the b such that C[b] <= i < C[b+1], C the exclusive
-    cumsum of counts.
-
-    out[i] = #{b : C[b] <= i} - 1, so s[j] = #{b : C[b] == j} is scattered
-    from the bin starts and one inclusive cumsum with the carry shift - 1
-    expands it. Starts equal to n (trailing empty bins) land in a slot past
-    the end, as the JAX scatter's ``mode="drop"`` drops them. The JAX
-    package picks a one- or two-plane TPU scan by the largest boundary
-    multiplicity; the card's scan is exact for any input, so both take the
-    one kernel."""
-    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-    s = torch.zeros(n + 1, dtype=torch.int32, device=counts.device)
-    s.index_add_(0, starts.clamp(max=n).to(torch.int64), torch.ones_like(starts))
+    cumsum of counts. The JAX package scatters the bin starts into an n-row
+    column and expands it with a TPU scan; the card writes each row once
+    from the starts (``expand_runs_cuda``)."""
     if isinstance(shift, torch.Tensor):
-        carry = (shift.to(torch.int32) - 1).reshape(1)
-    else:
-        carry = int(shift) - 1
-    return cumsum_cuda.cumsum(s[:n], carry_init=carry)
+        shift = shift.to(torch.int32)
+    return expand_runs_cuda.expand_runs(counts, n, shift)
 
 
 def _shifted_histogram(

@@ -17,7 +17,7 @@ The engines and their cliffs:
     offsets < 2^14, counts < 2^10), which pick the JAX probe's engine
     (packed3, packed, two gathers), over the count histogram (hi128).
   * ``sort.sort_auto``: the span read on the host: the counting sort
-    (histogram, cumsum) with hi80 below 80·128, hi128 below 2^14, and
+    (histogram, expand_runs) with hi80 below 80·128, hi128 below 2^14, and
     ``torch.sort`` above.
 
 ``CASES`` holds every case of the two JAX files at their sizes, on their
@@ -70,8 +70,8 @@ PHASE_A_TAIL = ("chunk_stats", "cumsum", "scan_tail_streams")
 BRANCH_KERNELS = {
     "filter_sparse:sparse": PHASE_A_TAIL + ("compact_mask", "emit_prefix"),
     "filter_sparse:general": PHASE_A_TAIL + ("filter",),
-    "sort_auto:hi80": ("histogram", "cumsum"),
-    "sort_auto:hi128": ("histogram", "cumsum"),
+    "sort_auto:hi80": ("histogram", "expand_runs"),
+    "sort_auto:hi128": ("histogram", "expand_runs"),
     "sort_auto:torch.sort": (),
     "dense_join:packed3": ("histogram",),
     "dense_join:packed": ("histogram",),

@@ -40,14 +40,19 @@ three modes at 2^22 rows; (group ``groupby``) ``groupby_cuda.groupby_small``
 at G = 64 and 4096 (GroupByLocal's keys and uniform keys) over 2^22 rows,
 on one hot key and on a view off 4 bytes, against ``index_add_`` and
 ``reduce_sum`` over the same 33.6 MB; (group ``large``) the sweeps' 2^27 rows: the
-count histogram at hi80, the run-expansion cumsum, phase A, the scan tail
-over 2^20 chunks and ``filter_sparse`` at x < 5; each with the kernels and
+count histogram at hi80, the cumsum over a column of Radix's bin starts,
+phase A, the scan tail over 2^20 chunks and ``filter_sparse`` at x < 5;
+(group ``expand``) the counting sort's run expansion, ``sort._expand_runs``
+and its kernel ``expand_runs_cuda.expand_runs`` where the checkout has
+one, at Radix's hi80 2^22 and 2^27 and at hi128 2^27, with the launches a
+call and exactness; each with the kernels and
 memsets a call puts on the card (``device_ops``). ``--only`` runs the named groups (none: ``--only
 ""``).
 ``--sweep`` times the weighted histogram under every (cluster, copies) plan
 and the count histogram under every (blocks, mergers) plan at the
 main-path shapes (``--sweep groupby``: groupby_small under every plan of
-its two loops) and ``--host`` breaks one launch's host time down over
+its two loops; ``--sweep expand``: the run expansion under grids of 1 to 8
+blocks an SM) and ``--host`` breaks one launch's host time down over
 10^4 calls; ``--sweep`` needs the newer checkout. Prints one JSON object a
 line, each with the card's name and power limit.
 
@@ -517,7 +522,9 @@ def large_lines(root_label: str, dev, emit) -> None:
     """The sweeps' largest size, 2^27 rows (512 MB of int32 in [1,
     10000]): the count histogram at Radix's hi80 (a block counts more than
     2^16 keys, so its copies are 32-bit) against ``torch.bincount``, the
-    run-expansion cumsum over 2^27 values against ``torch.cumsum``, phase A
+    cumsum over 2^27 values (Radix's bin starts marked, the column the
+    sort's run expansion scanned before it had a kernel of its own)
+    against ``torch.cumsum``, phase A
     and the scan tail over 2^20 chunks and ``filter_sparse`` at x < 5, each
     with the kernels and memsets a call and the bound of the bytes it must
     move."""
@@ -550,8 +557,8 @@ def large_lines(root_label: str, dev, emit) -> None:
     counts = np.bincount(x - 1, minlength=nbins)
     starts = np.cumsum(counts) - counts
     s = t(np.bincount(np.minimum(starts, n), minlength=n + 1)[:n])
-    case("cumsum 2^27 int carry (Radix's run expansion)", cumsum_cuda.cumsum,
-         (s, -1), 8 * n)
+    case("cumsum 2^27 int carry (a column of Radix's bin starts marked)",
+         cumsum_cuda.cumsum, (s, -1), 8 * n)
     case("torch.cumsum 2^27",
          lambda v: torch.cumsum(v, 0, dtype=torch.int32), (s,), 8 * n)
     del s
@@ -571,6 +578,51 @@ def large_lines(root_label: str, dev, emit) -> None:
     case("filter_sparse 2^27 x<5",
          lambda v: scan.filter_sparse(v, 5, assume_sparse=sparse), (xd,),
          4 * (n + hits), graph=sparse, sparse=sparse, hits=hits)
+
+
+def _radix_counts(n: int, hi_bins: int, seed: int = 27) -> np.ndarray:
+    """The count histogram of ``n`` keys, Radix's [1, 10000] less their
+    minimum at hi80, uniform over every bin at hi128."""
+    rng = np.random.default_rng(seed)
+    high = 10000 if hi_bins == 80 else hi_bins * 128
+    return np.bincount(rng.integers(0, high, n), minlength=hi_bins * 128)
+
+
+def expand_lines(root_label: str, dev, emit) -> None:
+    """The counting sort's run expansion at Radix's hi80 2^22 and 2^27 and
+    at hi128 2^27: ``sort._expand_runs`` (which every checkout has: the
+    zero fill, scatter and cumsum before the kernel, the kernel after) and,
+    where the checkout has it, ``expand_runs_cuda.expand_runs``, each with
+    its times, the kernels and memsets a call, the launches one call
+    counts, whether it equals the bins repeated by the counts, and the
+    bound of the rows written and the counts read."""
+    from dwarf_bench_tpu_torch.ops import _build, sort
+
+    try:
+        from dwarf_bench_tpu_torch.ops import expand_runs_cuda
+    except ImportError:
+        expand_runs_cuda = None
+    for label, n, hb in (("hi80 2^22", 1 << 22, 80),
+                         ("hi80 2^27 (Radix)", 1 << 27, 80),
+                         ("hi128 2^27", 1 << 27, 128)):
+        counts = torch.from_numpy(
+            _radix_counts(n, hb).astype(np.int32)).to(dev)
+        minv = torch.ones((), dtype=torch.int32, device=dev)
+        expected = 1 + torch.repeat_interleave(
+            torch.arange(hb * 128, dtype=torch.int32, device=dev), counts,
+            output_size=n)
+        calls = [("sort._expand_runs", sort._expand_runs)]
+        if expand_runs_cuda is not None:
+            calls.append(("expand_runs", expand_runs_cuda.expand_runs))
+        for name, fn in calls:
+            before = dict(_build.LAUNCHES)
+            exact = torch.equal(fn(counts, n, minv), expected)
+            launched = {k: v - before.get(k, 0)
+                        for k, v in _build.LAUNCHES.items()
+                        if v != before.get(k, 0)}
+            _case(root_label, emit, f"{name} {label}", fn, (counts, n, minv),
+                  4 * (n + hb * 128), exact=exact, launches=launched)
+        del expected
 
 
 def _takes_index(emit_prefix) -> bool:
@@ -872,6 +924,27 @@ def sweep_lines(dev, emit) -> None:
                       "cold_ms": cold_ms(fn, k, v, k=10)})
 
 
+def expand_sweep_lines(dev, emit) -> None:
+    """The run expansion's kernel under grids of 1 to 8 blocks an SM at
+    Radix's hi80 2^27 and 2^22; the kernel's own grid is ``blocks`` 0."""
+    from dwarf_bench_tpu_torch.ops import expand_runs_cuda
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, n in (("hi80 2^27", 1 << 27), ("hi80 2^22", 1 << 22)):
+        counts = torch.from_numpy(
+            _radix_counts(n, 80).astype(np.int32)).to(dev)
+        exp = expand_runs_cuda.expand_runs_plain(counts, n, 1)
+        for per_sm in (0, 1, 2, 3, 4, 6, 8):
+            fn = (lambda c, b=per_sm * sms:
+                  expand_runs_cuda.launch_expand_runs(c, n, 1, b))
+            emit({"sweep": f"expand_runs {label}", "blocks": per_sm * sms,
+                  "ok": torch.equal(fn(counts), exp),
+                  "graph_ms": graph_ms(fn, counts),
+                  "cold_ms": cold_ms(fn, counts, k=10),
+                  "bound_ms": 4 * (n + 80 * 128) / HBM_BYTES_PER_S * 1e3})
+        del exp
+
+
 def groupby_sweep_lines(dev, emit) -> None:
     """groupby_small under each plan (loop, blocks an SM, loads a thread,
     tables: one, four, and as many as the rule or the shared budget gives)
@@ -1044,11 +1117,11 @@ def main(argv=None) -> int:
     parser.add_argument("--label", default=None)
     parser.add_argument("--sweep", nargs="?", const="histogram,weighted",
                         default="", help="plan sweeps, of histogram, "
-                        "weighted and groupby")
+                        "weighted, groupby and expand")
     parser.add_argument("--host", action="store_true")
     parser.add_argument("--only", default="core,compaction,histogram,scan",
                         help="case groups, of core, compaction, histogram, "
-                        "scan, emit, lock, diag, groupby and large")
+                        "scan, emit, lock, diag, groupby, large and expand")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: CUDA is not available", file=sys.stderr)
@@ -1066,11 +1139,12 @@ def main(argv=None) -> int:
     groups = {"core": case_lines, "compaction": compaction_lines,
               "histogram": histogram_lines, "scan": scan_lines,
               "emit": emit_lines, "lock": lock_lines, "diag": diag_lines,
-              "groupby": groupby_lines, "large": large_lines}
+              "groupby": groupby_lines, "large": large_lines,
+              "expand": expand_lines}
     for group in filter(None, args.only.split(",")):
         groups[group](label, dev, emit)
     sweeps = {"histogram": histogram_sweep_lines, "weighted": sweep_lines,
-              "groupby": groupby_sweep_lines}
+              "groupby": groupby_sweep_lines, "expand": expand_sweep_lines}
     for name in filter(None, args.sweep.split(",")):
         sweeps[name](dev, emit)
     if args.host:

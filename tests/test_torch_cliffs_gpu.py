@@ -5,7 +5,7 @@ files' own sizes on CUDA tensors, held to the host oracles (``np.sort``,
 ``filter_oracle``'s rows, the join's probe, ``id_buffer`` and flags), each
 taking the branch the host predicts and launching that branch's kernels
 (``_build.LAUNCHES``: chunk_stats, cumsum, scan_tail_streams and
-compact_mask, emit_prefix or filter for the scan; histogram and cumsum for
+compact_mask, emit_prefix or filter for the scan; histogram and expand_runs for
 the counting sort; histogram for the join's build). They skip without a
 card. Like ``tests/test_torch_gpu.py`` this file imports no JAX:
 

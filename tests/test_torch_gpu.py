@@ -37,6 +37,7 @@ from dwarf_bench_tpu_torch.ops import (
     csr_join,
     cuckoo,
     cumsum_cuda,
+    expand_runs_cuda,
     filter_cuda,
     groupby,
     groupby_cuda,
@@ -49,6 +50,7 @@ from dwarf_bench_tpu_torch.ops import (
     reduce_cuda,
     scan,
     scan_tail_cuda,
+    sort,
     vadd_cuda,
 )
 from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
@@ -243,6 +245,95 @@ def test_cumsum_int_carry_makes_no_host_copy(cuda, rng):
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(got, cumsum_cuda.cumsum_plain(x, -1))
     assert torch.equal(got_max, cumsum_cuda.cumsum_plain(x, 2**31 - 1))
+
+
+# the benchmark's small grid (radix_u10k.small_grid): 256 ... 65536 rows
+SMALL_GRID = tuple(1 << k for k in range(8, 17))
+
+
+@pytest.mark.parametrize("hi_bins,n", [(80, 1 << 27), (128, 1 << 27)]
+                         + [(80, n) for n in SMALL_GRID])
+def test_expand_runs(cuda, rng, hi_bins, n):
+    """The kernel exact against its twin at Radix's 2^27 rows (hi80 and
+    hi128) and on the small grid, with an int and a tensor shift, one
+    kernel and no memset a call; sort_auto on the column launches it once
+    and the cumsum kernel not at all."""
+    keys = rng.integers(0, hi_bins * 128, n)
+    keys[0] = 0  # the column's min is 1
+    counts = _t(np.bincount(keys, minlength=hi_bins * 128), cuda)
+    minv = _t([1], cuda)
+    for shift in (1, minv, -(2**31), 2**31 - 1):
+        assert torch.equal(expand_runs_cuda.expand_runs(counts, n, shift),
+                           expand_runs_cuda.expand_runs_plain(counts, n,
+                                                              shift))
+    assert device_ops(expand_runs_cuda.expand_runs, counts, n, minv) == (1, 0)
+    x = _t(keys + 1, cuda)
+    before = dict(_build.LAUNCHES)
+    got = sort.sort_auto(x)
+    assert {k: _build.LAUNCHES[k] - before[k]
+            for k in ("histogram", "expand_runs", "cumsum")} == {
+        "histogram": 1, "expand_runs": 1, "cumsum": 0}
+    assert torch.equal(got, torch.sort(x).values)
+
+
+EXPAND_TILE = 8192  # rows a block of csrc/expand_runs.cu writes a tile
+
+
+@pytest.mark.parametrize("case", [
+    "empty_ends", "one_bin", "runs_of_one", "10240_bins_over_65536",
+    "n1", "tile_minus_1", "tile", "tile_plus_1", "last_bin_only"])
+def test_expand_runs_edges(cuda, rng, case):
+    """Leading and trailing empty bins, one bin holding every row, runs of
+    one row, a tail of fewer than four rows and the tile boundaries, under
+    shifts that wrap, and under explicit grids of 1, 3, 132 and 1000
+    blocks."""
+    nbins = 80 * 128
+    if case == "empty_ends":
+        keys = rng.integers(3000, 7000, 100_003)
+    elif case == "one_bin":
+        keys = np.full(1_000_001, 9000)
+    elif case == "runs_of_one":
+        keys = np.arange(nbins)
+    elif case == "10240_bins_over_65536":
+        keys = np.concatenate([np.arange(nbins),
+                               rng.integers(0, nbins, 65536 - nbins)])
+    elif case == "n1":
+        keys = np.array([4321])
+    elif case == "last_bin_only":
+        keys = np.full(77_777, nbins - 1)
+    else:
+        n = EXPAND_TILE + {"tile_minus_1": -1, "tile": 0, "tile_plus_1": 1}[case]
+        keys = rng.integers(0, nbins, n)
+    n = keys.size
+    counts = _t(np.bincount(keys, minlength=nbins), cuda)
+    for shift in (0, -(2**31), 2**31 - 1, _t([2**31 - 1], cuda), -7):
+        expected = expand_runs_cuda.expand_runs_plain(counts, n, shift)
+        assert torch.equal(expand_runs_cuda.expand_runs(counts, n, shift),
+                           expected)
+        for blocks in (1, 3, 132, 1000):
+            assert torch.equal(expand_runs_cuda.launch_expand_runs(
+                counts, n, shift, blocks), expected)
+
+
+def test_expand_runs_runs_on_the_current_stream_and_reads_nothing_back(
+        cuda, rng):
+    keys = rng.integers(0, 80 * 128, 1 << 20)
+    src = _t(np.bincount(keys, minlength=80 * 128), cuda)
+    shift = _t([-5], cuda)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(20_000_000)
+        counts = src + 0  # written on the side stream behind the sleep
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = expand_runs_cuda.expand_runs(counts, 1 << 20, -5)
+            got_t = expand_runs_cuda.expand_runs(counts, 1 << 20, shift)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    side.synchronize()
+    expected = expand_runs_cuda.expand_runs_plain(src, 1 << 20, -5)
+    assert torch.equal(got, expected) and torch.equal(got_t, expected)
 
 
 @pytest.mark.parametrize("hi_bins", [1, 8, 64, 80, 128, 160, 256, 512])
@@ -829,6 +920,7 @@ def test_wrappers_count_their_launches(cuda):
     hist_cuda.weighted_histogram(k, k, 8)
     groupby_cuda.groupby_small(k, k, 8)
     cumsum_cuda.cumsum(k)
+    expand_runs_cuda.expand_runs(k, 0)
     filter_cuda.filter(k, 5)
     compact_cuda.compact_mask(k > 0, (k,))
     compact_cuda.emit_prefix(k, 10)
@@ -855,6 +947,7 @@ def test_wrappers_count_their_launches(cuda):
     groupby_cuda.groupby_small_swar_pallas(k, k, 8)  # + groupby_small
     groupby_cuda.groupby_small_pallas_f32(k, k, 5000)  # + weighted_histogram
     hist_cuda.histogram_plain(k, 8)
+    expand_runs_cuda.expand_runs_plain(k, 0)
     filter_cuda.filter_plain(k, 5)
     bitonic_cuda.merge_bitonic_plain((k8, k8))
     merge_fill_cuda.merge_fill_plain(k, k, k, 4)
@@ -880,7 +973,7 @@ def test_wrappers_count_their_launches(cuda):
     lock_add_cuda.grid_accumulate_plain(3, device=cuda)
     mv.gb_diag_plain(k, k, "full", 8, 8, 32, 4096)
     assert {n: _build.LAUNCHES[n] - before[n] for n in before} == {
-        "histogram": 8, "cumsum": 5, "groupby_small": 7,
+        "histogram": 8, "cumsum": 5, "expand_runs": 1, "groupby_small": 7,
         "weighted_histogram": 6, "filter": 1, "compact_mask": 1,
         "emit_prefix": 1, "scan_tail_streams": 2, "merge_bitonic": 1,
         "merge_fill": 1, "reduce_sum": 1, "chunk_stats": 1,
@@ -1368,7 +1461,7 @@ MERGE_KERNELS = ("merge_bitonic", "merge_fill", "compact_mask")
 
 
 @pytest.mark.parametrize("dwarf,extra,kernels", [
-    ("RadixCuda", [], ("histogram", "cumsum")),
+    ("RadixCuda", [], ("histogram", "expand_runs")),
     ("GroupByCuda", ["--groups_count=64"], ("groupby_small",)),
     ("GroupByCuda", ["--groups_count=65536"], ("weighted_histogram",)),
     ("JoinOmnisciCuda", [], ("histogram",)),

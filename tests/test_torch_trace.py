@@ -39,7 +39,7 @@ SORT_COUNTING = {
     "sort_auto.histogram": "sort_auto",
     "kernel.histogram": "sort_auto.histogram",
     "sort_auto.expand": "sort_auto",
-    "kernel.cumsum": "sort_auto.expand",
+    "kernel.expand_runs": "sort_auto.expand",
 }
 PHASE_A_TAIL_CAPS = {
     "filter_sparse": ROOT,
