@@ -259,7 +259,8 @@ DWARF_RUNS = [
     # (dwarf, rows, extra CLI flags, kernels its path must launch)
     ("Radix", 1 << 22, [], ("histogram", "expand_runs")),
     ("GroupBy", 1 << 22, ["--groups_count=64"], ("groupby_small",)),
-    ("GroupBy", 1 << 20, ["--groups_count=65536"], ("weighted_histogram",)),
+    ("GroupBy", 1 << 20, ["--groups_count=65536"],
+     ("weighted_histogram", "weighted_multicast")),
     ("JoinOmnisci", 1 << 20, [], ("histogram",)),
     # the reference's scan: x < 5 over 2^24 uniform [1, 10000] (bench.py
     # run_scan); DPLScanCuda is pinned to the GPU whatever --device says
@@ -342,6 +343,7 @@ def phase_kernels(dev):
     (main-path) case."""
     from dwarf_bench_tpu_torch.common.datagen import make_random
     from dwarf_bench_tpu_torch.ops import (
+        _build,
         bitonic_cuda,
         chunk_stats_cuda,
         compact_cuda,
@@ -349,6 +351,7 @@ def phase_kernels(dev):
         cumsum_cuda,
         expand_runs_cuda,
         filter_cuda,
+        groupby,
         groupby_cuda,
         hist_cuda,
         lock_add_cuda,
@@ -729,6 +732,42 @@ def phase_kernels(dev):
     run("weighted_histogram", "single bin, sums cross 2^32", w, wp,
         t(np.full(20_011, 127)), t(np.full(20_011, i32max)), 1)
     run("weighted_histogram", "n=1", w, wp, t([65535]), t([9]), 512)
+    # the 2^16-bin kernels: the multicast clusters from 2^20 rows on (the
+    # group-by cells' 2^20 and 2^27), the remote-add cluster below
+    multicast_before = _build.LAUNCHES["weighted_multicast"]
+    gen = torch.Generator(device=dev).manual_seed(27)
+    k27 = torch.randint(0, 65536, (1 << 27,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    v27 = torch.randint(1, 10001, (1 << 27,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    run("weighted_histogram", "hi512 n=2^27 (multicast)", w, wp, k27, v27,
+        512, timed=True, cost=keyed(1 << 27, 1 << 16, 2),
+        library=index_add(1 << 16), cold=True, graph=True)
+    del k27, v27
+    run("weighted_histogram", "hi512 n=2^19 (remote adds)", w, wp,
+        big_k[: 1 << 19], big_v[: 1 << 19], 512, timed=True,
+        cost=keyed(1 << 19, 1 << 16, 2), library=index_add(1 << 16),
+        cold=True)
+    off_k, off_v = (t(rng.integers(-3, 65539, (1 << 20) + 8)),
+                    t(rng.integers(i32min, i32max, (1 << 20) + 8,
+                                   endpoint=True)))
+    for ok, ov in ((1, 1), (2, 2), (1, 2), (0, 3)):
+        n = (1 << 20) + 3
+        run("weighted_histogram", f"hi512 n=2^20 + 3, keys off {4 * ok} "
+            f"bytes, values off {4 * ov}", w, wp, off_k[ok: ok + n],
+            off_v[ov: ov + n], 512)
+    run("weighted_histogram", "hi512 n=2^20, sums cross 2^32 in 4 bins", w,
+        wp, t(rng.integers(0, 4, 1 << 20) * 16383), t(np.full(1 << 20, i32max)),
+        512)
+    gk, gv = (t(rng.integers(-3, 1027, (1 << 20) + 3)),
+              t(rng.integers(1, 10001, (1 << 20) + 3)))
+    run("weighted_histogram", "groupby_partials 64 executors x G=1024, "
+        "2^20 + 3 rows", lambda k, v: groupby.groupby_partials(k, v, 1024, 64),
+        lambda k, v: groupby.groupby_partials(k.cpu(), v.cpu(), 1024,
+                                              64).to(dev), gk, gv)
+    check(_build.LAUNCHES["weighted_multicast"] - multicast_before >= 10,
+          "weighted_histogram: the multicast kernel did not serve the "
+          "2^16-bin cases from 2^20 rows on")
 
     # -- the sparse scan's kernels (filter_sparse at 2^24, x < 5) --------
     def counted(cap):

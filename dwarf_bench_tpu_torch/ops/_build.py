@@ -55,7 +55,9 @@ _SIGNATURES = {
     "dbt_histogram_scratch": ([_I32, _I32], _I64),
     "dbt_weighted_histogram": (
         [_P, _P, _I64, _P, _I32, _I32, _I32, _P, _P], ctypes.c_int),
-    "dbt_weighted_histogram_max_clusters": ([_I32, _I32], ctypes.c_int),
+    "dbt_weighted_multicast": (
+        [_P, _P, _I64, _P] + [_I32] * 5 + [_P], ctypes.c_int),
+    "dbt_weighted_multicast_max_clusters": ([_I32] * 4, ctypes.c_int),
     "dbt_groupby_small": (
         [_P, _P, _I64, _P] + [_I32] * 7 + [_P, _I64, _P], ctypes.c_int),
     "dbt_cumsum": ([_P, _I64, _P, _I32, _P, _P, _P], ctypes.c_int),
@@ -99,6 +101,9 @@ LAUNCHES: Dict[str, int] = {
     "expand_runs": 0,
     "groupby_small": 0,
     "weighted_histogram": 0,
+    # the 2^16-bin weighted histogram's multicast kernel (csrc/hist.cu),
+    # counted under weighted_histogram too
+    "weighted_multicast": 0,
     "scan_tail_streams": 0,
     "compact_mask": 0,
     "emit_prefix": 0,

@@ -18,9 +18,15 @@ tests.
 (hi_bins 256 and 512) and ``weighted_histogram_i8_pallas`` (hi_bins below
 256): (hi_bins·128,) int32 sums of v per bin, wrapping mod 2^32, with
 out-of-range keys dropped. The card's kernel has no v < 2^14 precondition.
-It keeps each copy of the bins in the shared memory of one block or of a
-cluster of blocks; ``weighted_plan`` chooses the cluster size and the number
-of copies.
+Up to 2^15 bins each of its copies of the bins lies in one block's shared
+memory. Above, from 2^20 rows on, clusters of blocks take tiles of keys and
+values multicast to every block of the cluster, each block adding only the
+keys whose bins it owns, and add their slices into the zeroed output; below
+2^20 rows a cluster of 16 blocks holds each copy, every row added into the
+shared memory of the block that owns its bin. ``weighted_plan`` chooses the
+kernel, the cluster size and the number of copies or clusters, and
+``_weighted_schedule`` renders the multicast clusters' split in plain
+PyTorch for the tests.
 
 ``histogram_16k_pallas`` (hist_pallas.py:40, hi_bins <= 128) and
 ``weighted_histogram_pallas`` (:279, hi_bins <= 512, with its 2^14-bin alias
@@ -59,22 +65,40 @@ HIST_BLOCK_ROWS = 8192
 HIST_MAX_BLOCKS = 128
 HIST_MERGERS = 64
 
-# The weighted histogram's launch plan (csrc/hist.cu). A cluster of
-# ``cluster`` blocks holds one copy of the bins, nbins / cluster in each
-# block's shared memory; ``copies`` clusters each take a share of the rows,
-# and a second kernel adds their copies. Chosen by the plan sweep of
-# ``utils/kernel_times.py --sweep`` on an H100 (PERF.md): a row added into
-# another block's shared memory costs several times one added into the
-# block's own, so one block holds the bins whenever they fit
-# (CLUSTER1_MAX_BINS, 128 KB), and the 2^16 bins of the G = 2^16 group-by
-# take a cluster of 16 (16 KB a block).
+# The weighted histogram's launch plans (csrc/hist.cu), chosen by the plan
+# sweep of ``utils/kernel_times.py --sweep weighted`` on an H100 (PERF.md).
+# Up to CLUSTER1_MAX_BINS bins (128 KB) one block holds a copy of the bins;
+# ``copies`` blocks each take a share of the rows, and a second kernel adds
+# their copies. The copies are written and read once, so copies * nbins <=
+# copy_bins_limit keeps them within 8 bytes a row, beside the 8 bytes a row
+# of keys and values; more copies than MAX_COPIES cost the second kernel more
+# than they save.
 CLUSTER1_MAX_BINS = 32768
-# The copies are written and read once, so copies * nbins <= max(nbins, n)
-# keeps them within 8 bytes a row, beside the 8 bytes a row of keys and
-# values; more copies than MAX_COPIES cost the second kernel more than they
-# save.
 MAX_COPIES = 64
+# Above it, below MULTICAST_MIN_ROWS rows, a cluster of REMOTE_CLUSTER blocks
+# holds a copy (16 KB a block at 2^16 bins), each block adding its rows into
+# the owner block's shared memory; copies as above, at most
+# MAX_WEIGHTED_BLOCKS blocks. From MULTICAST_MIN_ROWS rows on, clusters of
+# MULTICAST_CLUSTER blocks each own nbins / MULTICAST_CLUSTER bins; tiles of
+# MULTICAST_TILE_ROWS keys and as many values are copied once into a ring of
+# MULTICAST_STAGES stages of every block of a cluster, and each block's
+# adding warps, one a 128 rows of a tile, add only the rows whose bins it
+# owns. Each cluster adds its slices into the output once, so clusters *
+# nbins <= copy_bins_limit keeps the flush within an add a row; at most
+# MULTICAST_MAX_CLUSTERS, the clusters an H100 holds at once. The flush
+# bound leaves the multicast kernel one cluster (2 SMs) a 2^16 rows, so the
+# remote adds, which spread few rows over more SMs, stay faster below the
+# sweep's crossover (2^19 rows: 0.0184 ms against 0.0199; 2^20: 0.0257
+# against 0.0213). ``launch_weighted`` sends clusters of MULTICAST_CLUSTERS
+# blocks to the multicast kernel.
+REMOTE_CLUSTER = 16
 MAX_WEIGHTED_BLOCKS = 256
+MULTICAST_MIN_ROWS = 1 << 20
+MULTICAST_CLUSTER = 2
+MULTICAST_CLUSTERS = (2, 4)
+MULTICAST_MAX_CLUSTERS = 66
+MULTICAST_STAGES = 3
+MULTICAST_TILE_ROWS = 3968  # 31 adding warps: with the copying one, 1024 lanes
 
 
 def _check_hi_bins(op: str, hi_bins: int, most: int) -> int:
@@ -249,14 +273,21 @@ def copy_bins_limit(n: int, nbins: int) -> int:
 
 def weighted_plan(hi_bins: int, n: int) -> Tuple[int, int]:
     """(cluster, copies) of the weighted histogram of ``n`` rows into
-    hi_bins·128 bins: one block when it holds the bins, else a cluster of
-    16, and as many copies as ``copy_bins_limit``, MAX_COPIES and
-    MAX_WEIGHTED_BLOCKS allow, at least one."""
+    hi_bins·128 bins: up to CLUSTER1_MAX_BINS bins one block a copy, as many
+    copies as ``copy_bins_limit`` and MAX_COPIES allow; above, below
+    MULTICAST_MIN_ROWS rows, clusters of REMOTE_CLUSTER blocks a copy, as
+    many as also MAX_WEIGHTED_BLOCKS allows; from MULTICAST_MIN_ROWS rows on,
+    MULTICAST_CLUSTER blocks a cluster, as many clusters as
+    ``copy_bins_limit`` and MULTICAST_MAX_CLUSTERS allow; at least one."""
     nbins = hi_bins * 128
-    cluster = 1 if nbins <= CLUSTER1_MAX_BINS else 16
-    copies = min(copy_bins_limit(n, nbins) // nbins, MAX_COPIES,
-                 MAX_WEIGHTED_BLOCKS // cluster)
-    return cluster, max(copies, 1)
+    copies = copy_bins_limit(n, nbins) // nbins
+    if nbins <= CLUSTER1_MAX_BINS:
+        return 1, max(min(copies, MAX_COPIES), 1)
+    if n < MULTICAST_MIN_ROWS:
+        return REMOTE_CLUSTER, max(min(copies, MAX_COPIES,
+                                       MAX_WEIGHTED_BLOCKS // REMOTE_CLUSTER),
+                                   1)
+    return MULTICAST_CLUSTER, max(min(copies, MULTICAST_MAX_CLUSTERS), 1)
 
 
 def weighted_histogram(
@@ -281,18 +312,112 @@ def weighted_histogram(
 
 
 def launch_weighted(k: torch.Tensor, v: torch.Tensor, nbins: int,
-                    cluster: int, copies: int) -> torch.Tensor:
+                    cluster: int, copies: int,
+                    stages: int = MULTICAST_STAGES,
+                    tile_rows: int = MULTICAST_TILE_ROWS) -> torch.Tensor:
     """The weighted-histogram kernel on checked CUDA vectors under an
-    explicit plan (``weighted_plan`` gives the wrapper's)."""
+    explicit plan (``weighted_plan`` gives the wrapper's): cluster 2 or 4
+    (MULTICAST_CLUSTERS), ``copies`` clusters of the multicast kernel with
+    ``stages`` stages of ``tile_rows`` rows (a multiple of 128 up to 3968,
+    128 an adding warp); else ``copies`` copies of a cluster of ``cluster``
+    blocks (1, 8 or 16) that add into the owner block."""
     out = torch.empty(nbins, dtype=torch.int32, device=k.device)
-    # every copy is written in full before it is read
-    scratch = None if copies == 1 else _build.stream_scratch(
-        "weighted_histogram", k.device, copies * nbins)
-    _build.launch("dbt_weighted_histogram", k.device, k.data_ptr(),
-                  v.data_ptr(), k.numel(), out.data_ptr(), nbins, cluster,
-                  copies, None if scratch is None else scratch.data_ptr())
+    if cluster in MULTICAST_CLUSTERS:  # zeroed and added into in one call
+        _build.launch("dbt_weighted_multicast", k.device, k.data_ptr(),
+                      v.data_ptr(), k.numel(), out.data_ptr(), nbins,
+                      cluster, copies, stages, tile_rows)
+        _build.LAUNCHES["weighted_multicast"] += 1
+    else:
+        # every copy is written in full before it is read
+        scratch = None if copies == 1 else _build.stream_scratch(
+            "weighted_histogram", k.device, copies * nbins)
+        _build.launch("dbt_weighted_histogram", k.device, k.data_ptr(),
+                      v.data_ptr(), k.numel(), out.data_ptr(), nbins,
+                      cluster, copies,
+                      None if scratch is None else scratch.data_ptr())
     _build.LAUNCHES["weighted_histogram"] += 1
     return out
+
+
+def _multicast_pieces(rows: int, cluster: int):
+    """The pieces of a staged tile of ``rows`` rows (a multiple of 4) that
+    the ranks of a cluster copy, as the kernel's ``piece_rows`` cuts them:
+    (rank, column, first row, end row), ranks below cluster / 2 the keys
+    (column 0) and the others the values (column 1), each an equal share of
+    whole 16-byte words; the empty pieces of a short tile are left out."""
+    half = cluster // 2
+    per = (-(-rows // half) + 3) // 4 * 4
+    pieces = []
+    for rank in range(cluster):
+        p0 = min((rank % half) * per, rows)
+        p1 = min(p0 + per, rows)
+        if p1 > p0:
+            pieces.append((rank, int(rank >= half), p0, p1))
+    return pieces
+
+
+def _weighted_schedule(k: torch.Tensor, v: torch.Tensor, hi_bins: int,
+                       cluster: int, clusters: int,
+                       tile_rows: int = MULTICAST_TILE_ROWS,
+                       offsets: Tuple[int, int] = (0, 0)):
+    """``weighted_histogram`` by the multicast kernel's split, for the
+    tests: keys and values as views ``offsets`` int32 past a 16-byte
+    boundary. Where the two lie alike, the rows from the first boundary on,
+    in whole 16-byte words, are cut into tiles of ``tile_rows``, tile t going
+    to cluster t mod ``clusters``; each tile is staged from the pieces its
+    ranks copy (``_multicast_pieces``), every row exactly once, and the rows
+    before the boundary and the last (n - head) % 4 go to cluster 0. Else
+    the tiles cover every row and each block reads them itself. Block r of a
+    cluster adds the staged rows whose keys fall in its nbins / cluster
+    bins; each cluster that took rows then adds its slices into the zeroed
+    output. Returns (out, the adds of each (cluster, block), the rows each
+    cluster staged, the bins flushed, whether the rows were staged)."""
+    nbins = hi_bins * 128
+    assert cluster in (2, 4) and nbins % (32 * cluster) == 0
+    assert tile_rows > 0 and tile_rows % 128 == 0 and clusters >= 1
+    owned = nbins // cluster
+    n = k.numel()
+    ku, vu = as_u32(k.cpu()), v.cpu().to(torch.int64)
+    mis_k, mis_v = (o % 4 for o in offsets)
+    bulk = mis_k == mis_v
+    head = min((4 - mis_k) % 4, n) if bulk else 0
+    nbulk = (n - head) // 4 * 4 if bulk else 0
+    lo, count = (head, nbulk) if bulk else (0, n)
+    sums = torch.zeros(clusters, cluster, owned, dtype=torch.int64)
+    adds = torch.zeros(clusters, cluster, dtype=torch.int64)
+    staged = torch.zeros(clusters, dtype=torch.int64)
+    took = torch.zeros(clusters, dtype=torch.bool)
+
+    def add(c, keys, vals):
+        took[c] = True
+        for r in range(cluster):
+            b = keys - r * owned  # wraps below 0 for other blocks' keys
+            mine = (b >= 0) & (b < owned)
+            sums[c, r].index_add_(0, b[mine], vals[mine])
+            adds[c, r] += int(mine.sum())
+
+    for t in range(-(-count // tile_rows)):
+        c = t % clusters
+        row0 = lo + t * tile_rows
+        rows = min(tile_rows, lo + count - row0)
+        if bulk:
+            stage = torch.full((2, rows), -1, dtype=torch.int64)
+            for _, col, p0, p1 in _multicast_pieces(rows, cluster):
+                assert p0 % 4 == 0 and (p1 - p0) % 4 == 0
+                assert bool((stage[col, p0:p1] == -1).all())  # once a row
+                stage[col, p0:p1] = (ku, vu)[col][row0 + p0: row0 + p1]
+            assert bool((stage != -1).all())
+            staged[c] += rows
+            add(c, stage[0], stage[1])
+        else:
+            add(c, ku[row0: row0 + rows], vu[row0: row0 + rows])
+    if bulk:
+        rest = torch.cat([torch.arange(head), torch.arange(head + nbulk, n)])
+        add(0, ku[rest], vu[rest])
+    flushing = took.clone()
+    flushing[0] = True  # cluster 0 flushes even with no rows
+    out = sums[flushing].reshape(-1, nbins).sum(0)
+    return (wrap_i32(out), adds, staged, int(flushing.sum()) * nbins, bulk)
 
 
 def _check_jax_hi_bins(op: str, hi_bins: int, most: int) -> int:

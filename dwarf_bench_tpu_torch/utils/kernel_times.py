@@ -48,12 +48,16 @@ one, at Radix's hi80 2^22 and 2^27 and at hi128 2^27, with the launches a
 call and exactness; each with the kernels and
 memsets a call puts on the card (``device_ops``). ``--only`` runs the named groups (none: ``--only
 ""``).
-``--sweep`` times the weighted histogram under every (cluster, copies) plan
-and the count histogram under every (blocks, mergers) plan at the
-main-path shapes (``--sweep groupby``: groupby_small under every plan of
+``--sweep`` times the weighted histogram under its plans (at hi512, 2^16 to
+2^27 rows: the wrapper's, the remote-add cluster's and the multicast
+kernel's (cluster, clusters, stages, tile rows); below 2^15 bins
+the copies) and the count histogram under every (blocks, mergers) plan at
+the main-path shapes (``--sweep groupby``: groupby_small under every plan of
 its two loops; ``--sweep expand``: the run expansion under grids of 1 to 8
 blocks an SM) and ``--host`` breaks one launch's host time down over
-10^4 calls; ``--sweep`` needs the newer checkout. Prints one JSON object a
+10^4 calls; ``--sweep`` needs the newer checkout, except ``--sweep
+weighted``, which under an older ``--root`` times that checkout's wrapper
+plan at hi512. Prints one JSON object a
 line, each with the card's name and power limit.
 
 Per case: ``events_ms``, the median of CUDA-event brackets around single
@@ -883,45 +887,86 @@ def histogram_sweep_lines(dev, emit) -> None:
                       "cold_ms": cold_ms(fn, k, k=10)})
 
 
+# the multicast plans of the 2^16-bin weighted histogram's sweep: (stages,
+# tile rows) a cluster size, an adding warp a block for each 128 rows
+MULTICAST_RINGS = {2: ((3, 3968), (4, 3072), (5, 2432), (6, 2048), (8, 1536)),
+                   4: ((5, 3968), (8, 2048))}
+WEIGHTED_SIZES = tuple(1 << e for e in (16, 17, 18, 19, 20, 21, 22, 24, 27))
+
+
 def sweep_lines(dev, emit) -> None:
-    """The weighted histogram under each (cluster, copies) plan at the
-    main-path shapes; the wrapper's own plan is marked."""
+    """The weighted histogram's plans. At hi512 (G = 2^16), uniform keys in
+    [0, 65536) at 2^16 to 2^27 rows: the wrapper's own plan (under
+    ``--root``, the older checkout's), and where the checkout has the
+    multicast kernel the remote-add cluster's plan and every (cluster,
+    clusters, stages, tile rows) of MULTICAST_RINGS whose clusters flush no
+    more bins than
+    ``copy_bins_limit`` (the most the card holds at once, and half of it);
+    then the one-block plans (copies) at the widths below 2^15 bins. The
+    wrapper's own plan is marked."""
     from dwarf_bench_tpu_torch.ops import _build, hist_cuda
 
-    rng = np.random.default_rng(2)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    top = WEIGHTED_SIZES[-1]
+    keys = torch.randint(0, 65536, (top,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    vals = torch.randint(1, 10001, (top,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    multicast = hasattr(hist_cuda, "MULTICAST_CLUSTER")
     lib = _build.library()
-    for cluster in (2, 4, 8, 16):
-        for hb in (128, 160, 256, 512):
-            emit({"max_active_clusters": lib.
-                  dbt_weighted_histogram_max_clusters(hb * 128, cluster),
-                  "cluster": cluster, "hi_bins": hb})
-    shapes = [("hi512 2^20", 512, 1 << 20, False),
-              ("hot key hi512 2^20", 512, 1 << 20, True),
-              ("hi160 2^22 (GroupByLocal 20 x 1024)", 160, 1 << 22, False),
-              ("hi256 2^20", 256, 1 << 20, False),
-              ("hi128 2^20", 128, 1 << 20, False),
-              ("hi64 1000003", 64, 1_000_003, False),
-              ("hi8 1000003", 8, 1_000_003, False)]
-    for label, hb, n, hot in shapes:
+    for n in WEIGHTED_SIZES:
+        k, v = keys[:n], vals[:n]
+        exp = hist_cuda.weighted_histogram_plain(k, v, 512)
+        plan = hist_cuda.weighted_plan(512, n)
+        fn = (lambda a, b: hist_cuda.weighted_histogram(a, b, 512))
+        emit({"sweep": f"hi512 2^{n.bit_length() - 1}", "plan": "wrapper",
+              "wrapper_plan": list(plan), "ok": torch.equal(fn(k, v), exp),
+              "device_ms": device_ms(fn, k, v),
+              "cold_ms": cold_ms(fn, k, v, k=10)})
+        if not multicast:
+            continue
+        limit = max(hist_cuda.copy_bins_limit(n, 65536) // 65536, 1)
+        remote = min(limit, hist_cuda.MAX_COPIES,
+                     hist_cuda.MAX_WEIGHTED_BLOCKS // hist_cuda.REMOTE_CLUSTER)
+        plans = [(hist_cuda.REMOTE_CLUSTER, remote)]
+        for cluster, rings in MULTICAST_RINGS.items():
+            for stages, tile_rows in rings:
+                most = lib.dbt_weighted_multicast_max_clusters(
+                    65536, cluster, stages, tile_rows)
+                for clusters in sorted({min(limit, most),
+                                        min(limit, most // 2)}):
+                    if clusters > 0:
+                        plans.append((cluster, clusters, stages, tile_rows))
+        wrapper = (*plan, hist_cuda.MULTICAST_STAGES,
+                   hist_cuda.MULTICAST_TILE_ROWS)
+        for p in plans:
+            fn = (lambda a, b, p=p: hist_cuda.launch_weighted(a, b, 65536, *p))
+            emit({"sweep": f"hi512 2^{n.bit_length() - 1}", "plan": list(p),
+                  "ok": torch.equal(fn(k, v), exp),
+                  "wrapper_plan": p in (plan, wrapper),
+                  "device_ms": device_ms(fn, k, v),
+                  "cold_ms": cold_ms(fn, k, v, k=10)})
+    del keys, vals
+    rng = np.random.default_rng(2)
+    shapes = [("hi160 2^22 (GroupByLocal 20 x 1024)", 160, 1 << 22),
+              ("hi256 2^20", 256, 1 << 20), ("hi128 2^20", 128, 1 << 20),
+              ("hi64 1000003", 64, 1_000_003), ("hi8 1000003", 8, 1_000_003)]
+    for label, hb, n in shapes:
         nbins = hb * 128
-        k = torch.from_numpy((np.full(n, 77) if hot else rng.integers(
-            0, nbins, n)).astype(np.int32)).to(dev)
+        k = torch.from_numpy(rng.integers(0, nbins, n).astype(np.int32)).to(dev)
         v = torch.from_numpy(rng.integers(1, 10000, n).astype(np.int32)).to(dev)
         exp = hist_cuda.weighted_histogram_plain(k, v, hb)
         plan = hist_cuda.weighted_plan(hb, n)
-        for cluster in (1, 2, 4, 8, 16):
-            if nbins * 4 // cluster > 200 * 1024:
+        for copies in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            if copies * nbins > max(n, nbins):
                 continue
-            for copies in (1, 2, 4, 8, 16, 32, 64, 128, 256):
-                if copies * cluster > 1024 or copies * nbins > max(n, nbins):
-                    continue
-                fn = (lambda a, b, c=cluster, p=copies:
-                      hist_cuda.launch_weighted(a, b, nbins, c, p))
-                ok = torch.equal(fn(k, v), exp)
-                emit({"sweep": label, "cluster": cluster, "copies": copies,
-                      "ok": ok, "wrapper_plan": (cluster, copies) == plan,
-                      "device_ms": device_ms(fn, k, v),
-                      "cold_ms": cold_ms(fn, k, v, k=10)})
+            fn = (lambda a, b, p=copies:
+                  hist_cuda.launch_weighted(a, b, nbins, 1, p))
+            emit({"sweep": label, "cluster": 1, "copies": copies,
+                  "ok": torch.equal(fn(k, v), exp),
+                  "wrapper_plan": (1, copies) == plan,
+                  "device_ms": device_ms(fn, k, v),
+                  "cold_ms": cold_ms(fn, k, v, k=10)})
 
 
 def expand_sweep_lines(dev, emit) -> None:

@@ -348,10 +348,14 @@ def test_weighted_histogram_plans(cuda, rng, hi_bins, n):
 
 
 @pytest.mark.parametrize("hi_bins,cluster", [(128, 1), (128, 8), (128, 16),
-                                             (256, 8), (512, 8), (512, 16)])
+                                             (256, 8), (512, 8), (512, 16),
+                                             (512, 2), (512, 4), (257, 2)])
 @pytest.mark.parametrize("copies", [1, 3, 16])
 def test_weighted_histogram_explicit_plans(cuda, rng, hi_bins, cluster,
                                            copies):
+    """Every kernel under explicit plans: one block a copy, the remote-add
+    clusters of 8 and 16, and the multicast clusters of 2 and 4 (copies is
+    their cluster count), on aligned views and on views one int32 off."""
     n = 300_007
     nbins = hi_bins * 128
     k = _t(rng.integers(-3, nbins + 3, n), cuda)
@@ -375,6 +379,64 @@ def test_weighted_histogram_skew(cuda, rng, case):
     v = _t(rng.integers(0, 2**32, n, dtype=np.uint64), cuda)
     assert torch.equal(hist_cuda.weighted_histogram(k, v, 512),
                        hist_cuda.weighted_histogram_plain(k, v, 512))
+
+
+# the 2^16-bin multicast kernel on its edge cases: (keys, values) of n rows
+def _multicast_case(case, rng):
+    n = (1 << 20) + 5
+    keys = {"uniform": rng.integers(0, 65536, n),
+            "hot": np.full(n, 40_000),
+            "dropped": rng.choice([-1, -(2**31), 65536, 2**31 - 1], n),
+            "wraps": rng.integers(0, 4, n) * 16383}[case]
+    vals = (np.full(n, 2**31 - 1) if case == "wraps"
+            else rng.integers(-(2**31), 2**31, n))
+    return keys, vals
+
+
+@pytest.mark.parametrize("case", ["uniform", "hot", "dropped", "wraps"])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (2, 2), (1, 2), (0, 3)])
+def test_weighted_multicast_exact(cuda, rng, case, offsets):
+    """The wrapper's 2^16-bin plan from 2^20 rows on is the multicast
+    kernel: bit for bit against the twin on one hot key, every key dropped
+    and sums that wrap, on views off 16 bytes alike (the head and tail
+    take scalar loads) and differently (each block reads its rows
+    itself)."""
+    keys, vals = _multicast_case(case, rng)
+    k = _t(keys, cuda)[offsets[0]:]
+    v = _t(vals, cuda)[offsets[1]:]
+    n = min(k.numel(), v.numel())
+    k, v = k[:n], v[:n]
+    before = _build.LAUNCHES["weighted_multicast"]
+    got = hist_cuda.weighted_histogram(k, v, 512)
+    assert _build.LAUNCHES["weighted_multicast"] == before + 1
+    assert torch.equal(got, hist_cuda.weighted_histogram_plain(k, v, 512))
+
+
+@pytest.mark.parametrize("n", [1 << 20, 1 << 27])
+def test_weighted_multicast_main_path(cuda, n):
+    """hi512 at the group-by cells' 2^20 and 2^27 rows, one kernel and one
+    memset a call, exact."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    k = torch.randint(0, 65536, (n,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    v = torch.randint(1, 10001, (n,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    assert hist_cuda.weighted_plan(512, n)[0] == 2
+    assert torch.equal(hist_cuda.weighted_histogram(k, v, 512),
+                       hist_cuda.weighted_histogram_plain(k, v, 512))
+    assert device_ops(hist_cuda.weighted_histogram, k, v, 512) == (1, 1)
+
+
+def test_groupby_dwarf_at_2p16_groups_takes_the_multicast_kernel(cuda,
+                                                                 tmp_path):
+    before = _build.LAUNCHES["weighted_multicast"]
+    rc = cli.main(["GroupByCuda", "--input_size", "1048576",
+                   "--iterations=2", f"--report_path={tmp_path / 'r.csv'}",
+                   "--groups_count=65536"])
+    assert rc == 0
+    results = populate_registry().find("GroupByCuda").get_results()
+    assert results and all(r.result.valid for r in results)
+    assert _build.LAUNCHES["weighted_multicast"] > before
 
 
 def test_weighted_histogram_runs_on_the_current_stream(cuda, rng):
@@ -974,7 +1036,8 @@ def test_wrappers_count_their_launches(cuda):
     mv.gb_diag_plain(k, k, "full", 8, 8, 32, 4096)
     assert {n: _build.LAUNCHES[n] - before[n] for n in before} == {
         "histogram": 8, "cumsum": 5, "expand_runs": 1, "groupby_small": 7,
-        "weighted_histogram": 6, "filter": 1, "compact_mask": 1,
+        "weighted_histogram": 6, "weighted_multicast": 0, "filter": 1,
+        "compact_mask": 1,
         "emit_prefix": 1, "scan_tail_streams": 2, "merge_bitonic": 1,
         "merge_fill": 1, "reduce_sum": 1, "chunk_stats": 1,
         "chunk_stats_pallas": 1, "chunk_stats_roll_pallas": 1,
@@ -1799,9 +1862,12 @@ def test_entry_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("groups,executors", [(64, 64), (20, 1024),
-                                              (4096, 1024), (16, 3)])
+                                              (4096, 1024), (16, 3),
+                                              (1024, 64)])
 def test_groupby_partials_on_cuda_matches_cpu(cuda, rng, groups, executors):
-    n = 1_000_003
+    """64 executors x G = 1024 take the 2^16-bin multicast kernel at these
+    2^20 + 3 rows."""
+    n = (1 << 20) + 3
     k = _t(rng.integers(-3, groups + 3, n), cuda)
     v = _t(rng.integers(1, 10001, n), cuda)
     got = groupby.groupby_partials(k, v, groups, executors)

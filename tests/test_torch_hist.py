@@ -224,28 +224,138 @@ def test_wrappers_reject_bad_input(bad):
 @pytest.mark.parametrize("hi_bins", [1, 8, 64, 80, 128, 129, 160, 256, 257,
                                      511, 512])
 @pytest.mark.parametrize("n", [0, 1, 100, 1000, 1 << 16, 1_000_003, 1 << 20,
-                               1 << 22, 1 << 24])
+                               1 << 22, 1 << 24, 1 << 27])
 def test_weighted_plan(hi_bins, n):
-    """The weighted histogram's plan: a cluster of 1, 8 or 16 blocks whose
-    shared memory holds the bins (128 KB a block at most), that divides the
-    bins evenly, one block whenever it holds them, and copies that hold at
-    most ``copy_bins_limit`` bins together (no more than the rows), within
-    the copy and block budgets."""
+    """The weighted histogram's plan: one block a copy whenever a block's
+    shared memory holds the bins (up to CLUSTER1_MAX_BINS, 128 KB), within
+    MAX_COPIES; above, below MULTICAST_MIN_ROWS rows, the remote-add
+    cluster of 16 blocks (16 KB a block), within the copy and block
+    budgets; from MULTICAST_MIN_ROWS rows on, multicast clusters of 2
+    blocks whose slices divide the bins evenly and fit a block beside its
+    stages, no more than an H100 holds at once, with no scratch. Copies or
+    clusters hold, or flush, at most ``copy_bins_limit`` bins together (no
+    more than the rows)."""
     nbins = hi_bins * 128
     cluster, copies = hist_cuda.weighted_plan(hi_bins, n)
-    assert cluster in (1, 8, 16)
-    assert nbins % cluster == 0 and nbins // cluster * 4 <= 128 * 1024
-    assert (cluster == 1) == (nbins <= hist_cuda.CLUSTER1_MAX_BINS)
-    assert 1 <= copies <= hist_cuda.MAX_COPIES
-    assert copies * nbins <= hist_cuda.copy_bins_limit(n, nbins)
-    assert copies * cluster <= hist_cuda.MAX_WEIGHTED_BLOCKS
-    assert hist_cuda.copy_bins_limit(n, nbins) <= max(nbins, n)
+    assert 1 <= copies and copies * nbins <= hist_cuda.copy_bins_limit(
+        n, nbins) <= max(nbins, n)
+    if nbins <= hist_cuda.CLUSTER1_MAX_BINS:
+        assert cluster == 1 and nbins * 4 <= 128 * 1024
+        assert copies <= hist_cuda.MAX_COPIES
+    elif n < hist_cuda.MULTICAST_MIN_ROWS:
+        assert cluster == 16 and nbins % cluster == 0
+        assert copies <= hist_cuda.MAX_COPIES
+        assert copies * cluster <= hist_cuda.MAX_WEIGHTED_BLOCKS
+    else:
+        assert cluster in hist_cuda.MULTICAST_CLUSTERS
+        assert nbins % (32 * cluster) == 0
+        ring = 2 * hist_cuda.MULTICAST_STAGES * hist_cuda.MULTICAST_TILE_ROWS
+        assert (nbins // cluster + ring) * 4 <= 227 * 1024
+        assert copies <= hist_cuda.MULTICAST_MAX_CLUSTERS
+        assert cluster * copies <= 132  # one block an SM of an H100
+        # an adding warp a 128 rows of a tile, 31 with the copying warp
+        assert hist_cuda.MULTICAST_TILE_ROWS % 128 == 0
+        assert hist_cuda.MULTICAST_TILE_ROWS <= 31 * 128
 
 
 def test_weighted_plan_grows_with_rows():
-    """More rows never mean fewer copies, and the main path's G = 2^16 at
-    2^20 rows gets 16 copies of a 16-block cluster (the sweep's best)."""
-    for hb in (1, 128, 160, 512):
-        copies = [hist_cuda.weighted_plan(hb, 1 << e)[1] for e in range(25)]
+    """More rows never mean fewer copies or clusters; the 2^16-bin plan
+    crosses from the remote-add cluster of 16 to the multicast clusters of
+    2 at 2^20 rows, the sweep's crossover; and the main paths' G = 2^16
+    gets 16 multicast clusters at 2^20 rows, 66 (one block on each of the
+    H100's 132 SMs) at 2^27."""
+    for hb in (1, 128, 160, 257, 512):
+        copies = [hist_cuda.weighted_plan(hb, 1 << e)[1] for e in range(28)]
         assert copies == sorted(copies)
-    assert hist_cuda.weighted_plan(512, 1 << 20) == (16, 16)
+    assert hist_cuda.MULTICAST_MIN_ROWS == 1 << 20
+    assert hist_cuda.weighted_plan(512, (1 << 20) - 1) == (16, 15)
+    assert hist_cuda.weighted_plan(512, 1 << 19) == (16, 8)
+    assert hist_cuda.weighted_plan(512, 1 << 16) == (16, 1)
+    assert hist_cuda.weighted_plan(512, 1 << 20) == (2, 16)
+    assert hist_cuda.weighted_plan(512, 1 << 27) == (2, 66)
+    assert hist_cuda.weighted_plan(256, 1 << 27) == (1, 64)
+
+
+@pytest.mark.parametrize("rows", [4, 8, 12, 16, 64, 1020, 2048, 4096])
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_multicast_pieces_cover_the_tile(rows, cluster):
+    """The ranks' pieces of a staged tile: keys from the first half of the
+    ranks, values from the second, whole 16-byte words, each row of each
+    column copied by exactly one rank."""
+    pieces = hist_cuda._multicast_pieces(rows, cluster)
+    for col in (0, 1):
+        covered = sorted((p0, p1) for rank, c, p0, p1 in pieces if c == col)
+        assert [p0 for p0, _ in covered] == [0] + [p1 for _, p1 in covered][:-1]
+        assert (covered[-1][1] if covered else 0) == rows
+    for rank, col, p0, p1 in pieces:
+        assert col == int(rank >= cluster // 2)
+        assert p0 % 4 == 0 and p1 % 4 == 0 and p1 > p0
+
+
+def _schedule_case(name, n, rng):
+    k = rng.integers(0, 65536, n)
+    v = rng.integers(1, 10001, n)
+    if name == "dropped":  # negatives, the int32 extremes, keys >= nbins
+        k = rng.choice([-1, -(2**31), 65536, 2**31 - 1, 70_000, 5], n)
+    elif name == "hot":
+        k = np.full(n, 40_000)
+    elif name == "wraps":  # values near 2^31 whose sums wrap mod 2^32
+        k = rng.integers(0, 8, n) * 8191
+        v = rng.integers(2**31 - 100, 2**31, n)
+    elif name == "signed":
+        k = rng.integers(-3, 65536 + 3, n)
+        v = rng.integers(-(2**31), 2**31, n)
+    return k.astype(np.int32), v.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["uniform", "dropped", "hot", "wraps",
+                                  "signed"])
+@pytest.mark.parametrize("n", [0, 1, 7, 1000, 20_011])
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (2, 2), (1, 2), (0, 3)])
+@pytest.mark.parametrize("cluster,clusters,tile_rows", [
+    (2, 1, 3968), (2, 3, 256), (4, 5, 128)])
+def test_weighted_schedule_matches_plain(case, n, offsets, cluster, clusters,
+                                         tile_rows):
+    """The multicast kernel's split (tiles to clusters, pieces to ranks,
+    rows to the blocks that own their keys, the head before the first
+    16-byte boundary and the tail to cluster 0, keys and values off 16 bytes
+    differently read by each block itself, each cluster's slices added into
+    the zeroed output) against the plain twin, bit for bit: ragged n, n
+    below one tile, dropped keys, one hot key, sums that wrap, views one and
+    two int32 off a 16-byte boundary. Every kept row is added once, by the
+    block that owns its key, and the flush adds no more bins than the
+    plan's clusters hold."""
+    rng = np.random.default_rng(n * 7 + sum(offsets))
+    k, v = _schedule_case(case, n, rng)
+    out, adds, staged, flushed, bulk = hist_cuda._weighted_schedule(
+        torch.from_numpy(k), torch.from_numpy(v), 512, cluster, clusters,
+        tile_rows, offsets)
+    assert out.dtype == torch.int32
+    assert torch.equal(out, hist_cuda.weighted_histogram_plain(
+        torch.from_numpy(k), torch.from_numpy(v), 512))
+    assert bulk == (offsets[0] % 4 == offsets[1] % 4)
+    ku = k.view(np.uint32)
+    owned = 65536 // cluster
+    for r in range(cluster):
+        mine = (ku >= r * owned) & (ku < (r + 1) * owned)
+        assert int(adds[:, r].sum()) == int(mine.sum())
+    head = min((4 - offsets[0] % 4) % 4, n) if bulk else 0
+    assert int(staged.sum()) == ((n - head) // 4 * 4 if bulk else 0)
+    assert flushed <= clusters * 65536
+
+
+def test_weighted_schedule_main_path_plan(rng):
+    """The wrapper's plan at 2^20 rows (16 clusters of 2) deals the tiles
+    round, no cluster staging a tile more than another, and matches the
+    twin."""
+    n = 1 << 20
+    k = rng.integers(0, 65536, n).astype(np.int32)
+    v = rng.integers(1, 10001, n).astype(np.int32)
+    cluster, clusters = hist_cuda.weighted_plan(512, n)
+    out, adds, staged, flushed, bulk = hist_cuda._weighted_schedule(
+        torch.from_numpy(k), torch.from_numpy(v), 512, cluster, clusters)
+    assert torch.equal(out, hist_cuda.weighted_histogram_plain(
+        torch.from_numpy(k), torch.from_numpy(v), 512))
+    assert bulk and int(staged.sum()) == n
+    assert int(staged.max() - staged.min()) <= hist_cuda.MULTICAST_TILE_ROWS
+    assert flushed == clusters * 65536 <= hist_cuda.copy_bins_limit(n, 65536)
