@@ -16,20 +16,12 @@ tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
-
 import torch
 
 from . import _build, trace
 from .primitives import wrap_i32
 
 Carry = _build.Int32
-
-
-def pack_carry(carry_init: Carry,
-               device: torch.device) -> Tuple[Optional[torch.Tensor], int]:
-    """The kernel's (carry tensor, carry value): ``_build.pack_int32``."""
-    return _build.pack_int32("cumsum", "carry_init", carry_init, device)
 
 
 def cumsum_plain(x: torch.Tensor, carry_init: Carry = 0) -> torch.Tensor:
@@ -44,7 +36,8 @@ def cumsum(x: torch.Tensor, carry_init: Carry = 0) -> torch.Tensor:
         device = _build.check_vectors("cumsum", x)
         if device.type == "cpu":
             return cumsum_plain(x, carry_init)
-        carry, carry_val = pack_carry(carry_init, device)
+        carry, carry_val = _build.pack_int32("cumsum", "carry_init",
+                                             carry_init, device)
         n = x.numel()
         out = torch.empty(n, dtype=torch.int32, device=device)
         scratch = _build.stream_scratch("cumsum", device,

@@ -56,8 +56,7 @@ On the card the engine runs
 a second time, timed by CUDA events, and every kernel of the branch must
 have launched in the first call (``_build.LAUNCHES``).
 ``tests/test_torch_cliffs.py`` runs every case on the CPU beside the JAX
-package; ``tests/test_torch_cliffs_gpu.py`` and ``chip_smoke.py``
-(``phase_cliffs``) run them on the card.
+package; ``tests/test_torch_cliffs_gpu.py`` runs them on the card.
 """
 
 from __future__ import annotations

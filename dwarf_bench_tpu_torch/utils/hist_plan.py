@@ -5,9 +5,9 @@ wrapper's own call on the same stream against its plain twin.
 
 Prints ``ran`` or ``refused: <error>`` for the plan (MERGERS defaults to
 BLOCKS: every block a merger), then ``next call exact: True`` or
-``False``. ``chip_smoke.py`` and ``tests/test_torch_gpu.py`` run it in a
-subprocess under a time limit, so that a plan that hung the card would be
-killed and reported instead of stalling them.
+``False``. ``tests/test_torch_gpu.py`` runs it in a subprocess under a time
+limit, so that a plan that hung the card would be killed and reported
+instead of stalling the tests.
 """
 
 from __future__ import annotations

@@ -318,9 +318,9 @@ def probe_compaction(dev, membership: bool, seed: int = 0):
 
 def csr_build_compaction(dev, seed: int = 20261017):
     """The general CSR join's build compaction at 2^20 rows (A keys drawn
-    with duplicates from [1, 2^19), as chip_smoke's CSR join): the segment
-    starts of the sorted keys, compacting (row index, key) into as many
-    slots as there are distinct keys."""
+    with duplicates from [1, 2^19)): the segment starts of the sorted keys,
+    compacting (row index, key) into as many slots as there are distinct
+    keys."""
     from dwarf_bench_tpu_torch.ops.primitives import sort_by_key
 
     n = 1 << 20

@@ -17,8 +17,7 @@ the group-by's boundaries at 2^16 (the JAX functions take seconds a call
 at the JAX file's sizes on the CPU; each case's branch, which
 ``cliffs.run`` checks, is the same there); the two-gather join at 2^21 is
 held to the host oracle only.
-The card runs every case at its own size (``tests/test_torch_cliffs_gpu.py``,
-``chip_smoke.py`` ``phase_cliffs``).
+The card runs every case at its own size (``tests/test_torch_cliffs_gpu.py``).
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ import torch
 from dwarf_bench_tpu.ops.cumsum_pallas import cumsum_pallas
 from dwarf_bench_tpu.ops.sort import _expand_runs as jax_expand_runs
 from dwarf_bench_tpu.ops.sort import histogram_16k
-from dwarf_bench_tpu_torch.ops import cumsum_cuda
+from dwarf_bench_tpu_torch.ops import _build, cumsum_cuda
 from dwarf_bench_tpu_torch.ops.primitives import wrap_i32
 from dwarf_bench_tpu_torch.ops.sort import _expand_runs
 
@@ -93,7 +93,8 @@ def test_rejects_bad_carry():
 def test_int_carry_packs_like_wrap_i32(carry):
     """An int carry goes to the kernel by value, wrapped on the host to the
     int32 that ``wrap_i32`` (the plain version's carry) gives."""
-    tensor, value = cumsum_cuda.pack_carry(carry, torch.device("cpu"))
+    tensor, value = _build.pack_int32("cumsum", "carry_init", carry,
+                                      torch.device("cpu"))
     assert tensor is None
     exp = wrap_i32(torch.tensor([carry], dtype=torch.int64))
     assert value == int(exp[0])
@@ -102,6 +103,7 @@ def test_int_carry_packs_like_wrap_i32(carry):
 
 def test_tensor_carry_packs_as_a_tensor():
     carry = _t([-(2**31)])
-    tensor, value = cumsum_cuda.pack_carry(carry, carry.device)
+    tensor, value = _build.pack_int32("cumsum", "carry_init", carry,
+                                      carry.device)
     assert tensor is not None and tensor.data_ptr() == carry.data_ptr()
     assert value == 0

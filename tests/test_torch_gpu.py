@@ -54,6 +54,7 @@ from dwarf_bench_tpu_torch.ops import (
     vadd_cuda,
 )
 from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
+from dwarf_bench_tpu_torch.scripts import sweeps
 from dwarf_bench_tpu_torch.utils.kernel_times import device_ops
 
 pytestmark = pytest.mark.gpu
@@ -85,14 +86,17 @@ def test_histogram(cuda, rng, hi_bins, n):
 
 
 @pytest.mark.parametrize("hi_bins,n", [(80, 1 << 22), (128, 1 << 20),
-                                       (8, 100_003), (128, 1)])
+                                       (8, 100_003), (128, 1), (80, 1 << 27)])
 def test_histogram_plan(cuda, rng, hi_bins, n):
-    """The wrapper's plan at the main-path shapes (Radix hi80 at 2^22, the
-    JoinOmnisci build hi128 at 2^20) and at small ones: its copies hold no
-    more bins than the keys, and the result is exact."""
+    """The wrapper's plan at the main-path shapes (Radix hi80 at 2^22 and at
+    the sweeps' 2^27, the JoinOmnisci build hi128 at 2^20) and at small
+    ones: its copies hold no more bins than the keys, in 32 bits at 2^27 (a
+    block counts more than 2^16 keys), and the result is exact."""
     blocks, mergers = hist_cuda.histogram_plan(hi_bins, n)
     assert blocks * hi_bins * 128 <= max(hi_bins * 128, n)
     assert mergers <= blocks and hi_bins * 128 % (8 * mergers) == 0
+    if n == 1 << 27:
+        assert not hist_cuda._narrow(hist_cuda.HIST_THREADS, blocks, n // 4)
     k = _t(rng.integers(-3, hi_bins * 128 + 3, n), cuda)
     assert torch.equal(hist_cuda.histogram(k, hi_bins),
                        hist_cuda.histogram_plain(k, hi_bins))
@@ -100,10 +104,11 @@ def test_histogram_plan(cuda, rng, hi_bins, n):
 
 @pytest.mark.parametrize("blocks,mergers", [(1, 1), (5, 1), (5, 4), (16, 16),
                                             (64, 64), (128, 32), (3, 2),
-                                            (132, 64), (256, 16)])
+                                            (132, 64), (256, 16), (128, 64)])
 def test_histogram_explicit_plans(cuda, rng, blocks, mergers):
     """Plans with 16-bit copies (every block under 2^16 keys) and, with few
-    blocks, 32-bit ones; views off 16 bytes take the scalar head and tail.
+    blocks, 32-bit ones; (128, 64) is the wrapper's at hi80 2^22. Views off
+    16 bytes take the scalar head and tail.
     The counters are left zero: each next call on the stream is exact."""
     for n in (300_007, 1 << 20, 1 << 22):
         k = _t(rng.integers(-3, 80 * 128 + 3, n), cuda)
@@ -191,7 +196,7 @@ def test_weighted_histogram(cuda, rng, hi_bins):
                        hist_cuda.weighted_histogram_plain(k, v, hi_bins))
 
 
-@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 1_000_003])
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 1_000_003, 1 << 27])
 def test_cumsum(cuda, rng, n):
     x = _t(rng.integers(-(2**31), 2**31, n), cuda)
     for carry in (0, 2**31 - 1, _t([-(2**31)], cuda)):
@@ -233,8 +238,9 @@ def test_cumsum_runs_on_the_current_stream(cuda, rng):
     assert torch.equal(got, cumsum_cuda.cumsum_plain(src, 7))
 
 
-def test_cumsum_int_carry_makes_no_host_copy(cuda, rng):
-    x = _t(rng.integers(-5, 5, 1 << 20), cuda)
+@pytest.mark.parametrize("n", [1 << 20, 1 << 22])
+def test_cumsum_int_carry_makes_no_host_copy(cuda, rng, n):
+    x = _t(rng.integers(-5, 5, n), cuda)
     cumsum_cuda.cumsum(x, -1)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -315,9 +321,10 @@ def test_expand_runs_edges(cuda, rng, case):
                 counts, n, shift, blocks), expected)
 
 
+@pytest.mark.parametrize("n", [1 << 20, 1 << 22])
 def test_expand_runs_runs_on_the_current_stream_and_reads_nothing_back(
-        cuda, rng):
-    keys = rng.integers(0, 80 * 128, 1 << 20)
+        cuda, rng, n):
+    keys = rng.integers(0, 80 * 128, n)
     src = _t(np.bincount(keys, minlength=80 * 128), cuda)
     shift = _t([-5], cuda)
     side = torch.cuda.Stream()
@@ -327,12 +334,12 @@ def test_expand_runs_runs_on_the_current_stream_and_reads_nothing_back(
         counts = src + 0  # written on the side stream behind the sleep
         torch.cuda.set_sync_debug_mode("error")
         try:
-            got = expand_runs_cuda.expand_runs(counts, 1 << 20, -5)
-            got_t = expand_runs_cuda.expand_runs(counts, 1 << 20, shift)
+            got = expand_runs_cuda.expand_runs(counts, n, -5)
+            got_t = expand_runs_cuda.expand_runs(counts, n, shift)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     side.synchronize()
-    expected = expand_runs_cuda.expand_runs_plain(src, 1 << 20, -5)
+    expected = expand_runs_cuda.expand_runs_plain(src, n, -5)
     assert torch.equal(got, expected) and torch.equal(got_t, expected)
 
 
@@ -369,16 +376,22 @@ def test_weighted_histogram_explicit_plans(cuda, rng, hi_bins, cluster,
 
 
 @pytest.mark.parametrize("case", ["one bin", "one block's slice",
-                                  "out of range"])
+                                  "out of range", "hi8 out of range",
+                                  "hi1 one bin"])
 def test_weighted_histogram_skew(cuda, rng, case):
+    """At hi512, and on the one-block kernel at hi8 and hi1, whose sums in
+    one bin wrap past 2^32."""
     n = 1 << 20
+    hi_bins = {"hi8 out of range": 8, "hi1 one bin": 1}.get(case, 512)
     keys = {"one bin": np.full(n, 40_000),
             "one block's slice": rng.integers(4096, 8192, n),
-            "out of range": rng.choice([-1, -(2**31), 65536, 2**31 - 1], n)}
+            "out of range": rng.choice([-1, -(2**31), 65536, 2**31 - 1], n),
+            "hi8 out of range": np.resize([-1, -(2**31), 1024, 2**31 - 1], n),
+            "hi1 one bin": np.full(n, 127)}
     k = _t(keys[case], cuda)
     v = _t(rng.integers(0, 2**32, n, dtype=np.uint64), cuda)
-    assert torch.equal(hist_cuda.weighted_histogram(k, v, 512),
-                       hist_cuda.weighted_histogram_plain(k, v, 512))
+    assert torch.equal(hist_cuda.weighted_histogram(k, v, hi_bins),
+                       hist_cuda.weighted_histogram_plain(k, v, hi_bins))
 
 
 # the 2^16-bin multicast kernel on its edge cases: (keys, values) of n rows
@@ -478,10 +491,11 @@ def test_groupby_small_bit_exact(cuda, rng, num_groups, n):
 @pytest.mark.parametrize("k_off,v_off", [(1, 1), (2, 2), (3, 3), (1, 0),
                                          (0, 3), (2, 1)])
 @pytest.mark.parametrize("num_groups", [64, 4096])
-def test_groupby_small_misaligned_views(cuda, rng, k_off, v_off, num_groups):
+@pytest.mark.parametrize("n", [(1 << 20) + 7, (1 << 22) - 1])
+def test_groupby_small_misaligned_views(cuda, rng, k_off, v_off, num_groups,
+                                        n):
     """Views off 4-12 bytes: equal offsets peel their head rows, unequal
     ones take the scalar loop."""
-    n = (1 << 20) + 7
     k, v = _groupby_input(rng, n + 3, num_groups, cuda)
     kv, vv = k[k_off: k_off + n], v[v_off: v_off + n]
     plan = groupby_cuda.groupby_plan(num_groups, n, 132, k_off, v_off)
@@ -656,13 +670,17 @@ def test_emit_prefix(cuda, rng, length, cap, index, off):
 
 
 @pytest.mark.parametrize("density", [0.0, 5e-4, 1e-2])
-@pytest.mark.parametrize("nch", [1, 2048, 131072])
+@pytest.mark.parametrize("nch", [1, 2048, 131072, 1 << 20])
 def test_scan_tail_streams(cuda, rng, nch, density):
+    """Under small caps, tiny ones, and the caps ``filter_sparse`` gives
+    nch * 128 rows (2^17 singles and 4096 multis at 2^27)."""
     x = rng.integers(1, 10001, (nch, 128))
     hit = rng.random((nch, 128)) < density
     x[hit] = rng.integers(-1000, 5, hit.sum())  # some below the window
     stat, base = chunk_stats(_t(x, cuda), 5)
-    for caps in ((16384, 512), (7, 3)):
+    n = nch * 128
+    for caps in ((16384, 512), (7, 3),
+                 (max(16384, n >> 10), max(512, n >> 15))):
         got = scan_tail_cuda.scan_tail_streams(stat, base, 5, *caps)
         exp = scan_tail_cuda.scan_tail_streams_plain(stat, base, 5, *caps)
         ns, nm = int(exp[4]), int(exp[5])
@@ -1063,16 +1081,22 @@ STATS_NAMES = ("chunk_stats_pallas", "chunk_stats_roll_pallas",
 @pytest.mark.parametrize("name", ("chunk_stats",) + STATS_NAMES)
 @pytest.mark.parametrize("nch,thr", [(1, 5), (7, 5), (4097, 10000),
                                      (131072, 5), (3001, -(2**31) + 100),
-                                     (3001, -(2**31)), (300, 2**31 - 1)])
+                                     (3001, -(2**31)), (300, 2**31 - 1),
+                                     (1 << 20, 5)])
 def test_chunk_stats(cuda, rng, name, nch, thr):
     """nch 7 and 4097 leave a block part-filled; thresholds near INT32_MIN
-    wrap t - 512 and must give the plain version's garbage bit for bit."""
+    wrap t - 512 and must give the plain version's garbage bit for bit.
+    Phase A (the kernel and its cumsum) is two kernels and no memset at the
+    scan's 2^17 and 2^20 chunks."""
     x = _t(rng.integers(-(2**31), 2**31, nch * 128 + 1), cuda)
     x[5] = thr
     for x2 in (x[:-1].view(nch, 128), x[1:].view(nch, 128)):  # misaligned
         got = getattr(chunk_stats_cuda, name)(x2, thr)
         exp = chunk_stats_cuda.chunk_stats_plain(x2, thr)
         assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
+    if name == "chunk_stats" and nch >= 131072:
+        assert device_ops(chunk_stats_cuda.chunk_stats,
+                          x[:-1].view(nch, 128), thr) == (2, 0)
 
 
 @pytest.mark.parametrize("nch", [1, 2048, 131072, 1 << 18])
@@ -1114,7 +1138,7 @@ def test_probe_dense(cuda, rng, hi_rows, n):
         assert torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])
 
 
-@pytest.mark.parametrize("n", [1, 1_000_003])
+@pytest.mark.parametrize("n", [1, 1_000_003, 1 << 22])
 def test_hist_and_groupby_variants(cuda, rng, n):
     for hb in (8, 80, 128):
         k = _t(rng.integers(-100, hb * 128 + 100, n), cuda)
@@ -1139,7 +1163,8 @@ def test_hist_and_groupby_variants(cuda, rng, n):
 @pytest.mark.parametrize("stats_pallas", [True, False])
 @pytest.mark.parametrize("n,threshold,deep", [(1 << 20, 5, 0),
                                               (100_003, 5, 5),
-                                              (1 << 20, 5000, 0)])
+                                              (1 << 20, 5000, 0),
+                                              (1 << 24, 5, 0)])
 def test_filter_sparse_stats_pallas(cuda, rng, stats_pallas, n, threshold,
                                     deep):
     x = rng.integers(1, 10000, n, endpoint=True).astype(np.int32)
@@ -1158,8 +1183,9 @@ def test_filter_sparse_stats_pallas(cuda, rng, stats_pallas, n, threshold,
             stats_pallas
 
 
-def test_stats_pallas_assume_sparse_reads_nothing_back(cuda, rng):
-    x = _t(rng.integers(1, 10000, 1 << 20, endpoint=True), cuda)
+@pytest.mark.parametrize("n", [1 << 20, 1 << 24])
+def test_stats_pallas_assume_sparse_reads_nothing_back(cuda, rng, n):
+    x = _t(rng.integers(1, 10000, n, endpoint=True), cuda)
     for stats_pallas in (True, False):
         scan.filter_sparse(x, assume_sparse=True, stats_pallas=stats_pallas)
         torch.cuda.synchronize()
@@ -1172,7 +1198,8 @@ def test_stats_pallas_assume_sparse_reads_nothing_back(cuda, rng):
         assert out.is_cuda and count.is_cuda
 
 
-@pytest.mark.parametrize("na,nb", [(1000, 777), (1 << 17, 1 << 17)])
+@pytest.mark.parametrize("na,nb", [(1000, 777), (1 << 17, 1 << 17),
+                                   (1 << 20, 1 << 20)])
 def test_csr_join_on_cuda_matches_cpu(cuda, rng, na, nb):
     """The general CSR join on the card gives the CPU build's tables and
     answers; probe_merge_bitonic runs the 4-column merge and compact_mask
@@ -1343,10 +1370,10 @@ def test_merge_fill_tile_boundaries(cuda, rng, n, mode):
 
 @pytest.mark.parametrize("mode", FILL_MODES)
 @pytest.mark.parametrize("offset", [1, 2, 3])
-def test_merge_fill_of_views_off_16_bytes(cuda, rng, offset, mode):
+@pytest.mark.parametrize("n", [5 * FILL_TILE + 77, 1_000_003])
+def test_merge_fill_of_views_off_16_bytes(cuda, rng, offset, mode, n):
     """Each column in turn starts 4, 8 or 12 bytes past a 16-byte boundary:
     every tile takes the scalar loads."""
-    n = 5 * FILL_TILE + 77
     cols = _fill_columns(rng, n, cuda)
     for i in range(3):
         moved = list(cols)
@@ -1523,36 +1550,59 @@ SCAN_KERNELS = ("scan_tail_streams", "compact_mask", "emit_prefix")
 MERGE_KERNELS = ("merge_bitonic", "merge_fill", "compact_mask")
 
 
-@pytest.mark.parametrize("dwarf,extra,kernels", [
-    ("RadixCuda", [], ("histogram", "expand_runs")),
-    ("GroupByCuda", ["--groups_count=64"], ("groupby_small",)),
-    ("GroupByCuda", ["--groups_count=65536"], ("weighted_histogram",)),
-    ("JoinOmnisciCuda", [], ("histogram",)),
-    ("TwoPassScan", ["--device=gpu"], SCAN_KERNELS),
-    ("DPLScan", ["--device=gpu"], SCAN_KERNELS),
-    ("DPLScanCuda", [], SCAN_KERNELS),
-    ("ReduceDPCPP", ["--device=gpu"], ("reduce_sum",)),
-    ("SlabHashBuild", ["--device=gpu"], MERGE_KERNELS),
-    ("SlabProbe", ["--device=gpu"], MERGE_KERNELS),
-    ("SlabJoin", ["--device=gpu"], MERGE_KERNELS),
-    ("CuckooHashBuild", ["--device=gpu"], MERGE_KERNELS),
-    ("HashBuild", ["--device=gpu"], ()),
-    ("HashBuildNonBitmask", ["--device=gpu"], ()),
-    ("Join", ["--device=gpu"], ()),
-    ("NestedLoopJoin", ["--device=gpu"], ()),
+@pytest.mark.parametrize("dwarf,extra,kernels,full", [
+    ("RadixCuda", [], ("histogram", "expand_runs"), None),
+    ("GroupByCuda", ["--groups_count=64"], ("groupby_small",), 1 << 22),
+    ("GroupByCuda", ["--groups_count=65536"], ("weighted_histogram",), None),
+    ("JoinOmnisciCuda", [], ("histogram",), 1 << 20),
+    ("TwoPassScan", ["--device=gpu"], SCAN_KERNELS, None),
+    ("DPLScan", ["--device=gpu"], SCAN_KERNELS, None),
+    ("DPLScanCuda", [], SCAN_KERNELS, None),
+    ("ReduceDPCPP", ["--device=gpu"], ("reduce_sum",), 1 << 24),
+    ("SlabHashBuild", ["--device=gpu"], MERGE_KERNELS, None),
+    ("SlabProbe", ["--device=gpu"], MERGE_KERNELS, None),
+    ("SlabJoin", ["--device=gpu"], MERGE_KERNELS, 1 << 24),
+    ("CuckooHashBuild", ["--device=gpu"], MERGE_KERNELS, None),
+    ("HashBuild", ["--device=gpu"], (), 1 << 24),
+    ("HashBuildNonBitmask", ["--device=gpu"], (), 1 << 24),
+    ("Join", ["--device=gpu"], (), 1 << 24),
+    ("NestedLoopJoin", ["--device=gpu"], (), None),
 ])
-def test_dwarfs_run_through_the_kernels(cuda, tmp_path, dwarf, extra, kernels):
+def test_dwarfs_run_through_the_kernels(cuda, tmp_path, dwarf, extra, kernels,
+                                        full):
+    """Each dwarf at 1000 rows, at 65536 (2^20 on the scan and merge
+    paths) and at its full size, the bench's and BASELINE's, where no other
+    test runs it there (the sweep grids run Radix, the scans and three hash
+    dwarfs at 2^24-2^27; the GroupBy at 2^16 groups runs at 2^20 below):
+    every run valid, the CSV header the JAX package's."""
     before = dict(_build.LAUNCHES)
-    size = "1048576" if kernels in (SCAN_KERNELS, MERGE_KERNELS) else "65536"
-    rc = cli.main([dwarf, "--input_size", "1000", size, "--iterations=2",
+    sizes = ["1000", "1048576" if kernels in (SCAN_KERNELS, MERGE_KERNELS)
+             else "65536"] + ([str(full)] if full else [])
+    rc = cli.main([dwarf, "--input_size", *sizes, "--iterations=2",
                    f"--report_path={tmp_path / 'r.csv'}", *extra])
     assert rc == 0
     results = populate_registry().find(dwarf).get_results()
-    assert len(results) == 4 and all(r.result.valid for r in results)
+    assert len(results) == 2 * len(sizes)
+    assert all(r.result.valid for r in results)
     assert all(_build.LAUNCHES[k] > before[k] for k in kernels)
     lines = open(tmp_path / "r.csv").read().splitlines()
     assert lines[0] == "device_type,buf_size_bytes,host_time_ms,kernel_time_ms"
     assert all(line.startswith("GPU,") for line in lines[1:])
+
+
+def test_profile_dir_on_the_card(cuda, tmp_path):
+    """Radix at 2^22 through the CLI with ``--profile_dir``, in a process of
+    its own (a long-lived process's traces lose kernels): one trace, which
+    names the histogram kernel."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "dwarf_bench_tpu_torch", "Radix",
+         "--device=gpu", "--input_size", str(1 << 22), "--iterations=3",
+         f"--profile_dir={tmp_path}"],
+        capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    traces = list(tmp_path.iterdir())
+    assert len(traces) == 1, traces
+    assert "histogram_kernel" in traces[0].read_text()
 
 
 # -- the library API, GroupByLocal, the Constant* dwarfs and the examples'
@@ -1638,7 +1688,7 @@ def test_l2_round_trip_is_measured(cuda):
     assert 1e-8 < lock_add_cuda.l2_round_trip(cuda, chain=4096) < 1e-5
 
 
-@pytest.mark.parametrize("n", [1, 4097, 1_000_003])
+@pytest.mark.parametrize("n", [1, 4097, 1_000_003, 1 << 22])
 def test_measure_variants(cuda, rng, n):
     mv = measure_variants
     for hb in (64, 80, 128):
@@ -1829,22 +1879,45 @@ def test_bench_components_on_the_card(cuda, name, n):
     assert cold > 0 and warm > 0 and events > 0
 
 
-def test_bench_on_the_card(cuda, capsys, monkeypatch):
+# the kernels the bench's components and extras launch at its own sizes
+BENCH_KERNELS = ("histogram", "expand_runs", "cumsum", "groupby_small",
+                 "weighted_histogram", "chunk_stats", "scan_tail_streams",
+                 "compact_mask", "emit_prefix", "filter", "reduce_sum",
+                 "merge_bitonic", "merge_fill")
+
+
+def _bench_line(bench, capsys, monkeypatch, full):
+    """The bench's line from ``bench.main`` in this process: at the JAX
+    bench's sizes (the config-#4 hash extra at 2^24) with ``full``, else
+    at small ones."""
     import json
 
+    if not full:
+        monkeypatch.setattr(bench, "SIZES", {
+            "radix": 1 << 16, "groupby": 1 << 16, "groupby_big": 1 << 16,
+            "join": 1 << 16, "scan": 1 << 20, "scan_sel50_extra": 1 << 16,
+            "reduce_extra": 1 << 20})
+        monkeypatch.setenv("BENCH_HASH_N", str(1 << 17))
+    assert bench.main([]) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_bench_on_the_card(cuda, capsys, monkeypatch, full):
+    """Nothing skipped (each component checked against its host oracle),
+    every component positive and, cold, within its roofline; at full size
+    every kernel of its path launched."""
     from dwarf_bench_tpu_torch import bench
 
-    monkeypatch.setattr(bench, "SIZES", {
-        "radix": 1 << 16, "groupby": 1 << 16, "groupby_big": 1 << 16,
-        "join": 1 << 16, "scan": 1 << 20, "scan_sel50_extra": 1 << 16,
-        "reduce_extra": 1 << 20})
-    monkeypatch.setenv("BENCH_HASH_N", str(1 << 17))
-    assert bench.main([]) == 0
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    before = dict(_build.LAUNCHES)
+    line = _bench_line(bench, capsys, monkeypatch, full)
     assert line["skipped"] == []
     assert set(line["components_rows_per_s"]) == set(bench.COMPONENTS)
     assert all(v > 0 for v in line["components_rows_per_s"].values())
+    assert all(0 < f <= 1 for f in line["components_roofline_frac"].values())
     assert "H100" in line["device"] or "," in line["device"]
+    if full:
+        assert all(_build.LAUNCHES[k] > before[k] for k in BENCH_KERNELS)
 
 
 def test_entry_on_the_card_matches_the_cpu(cuda):
@@ -1852,7 +1925,9 @@ def test_entry_on_the_card_matches_the_cpu(cuda):
 
     fn, (a, b) = entry.entry()
     assert a.is_cuda and b.is_cuda
+    before = _build.LAUNCHES["histogram"]
     got = fn(a, b)
+    assert _build.LAUNCHES["histogram"] > before
     exp = fn(a.cpu(), b.cpu())
     assert torch.equal(got[0].cpu(), exp[0])
     assert torch.equal(got[2].cpu(), exp[2])
@@ -1884,11 +1959,11 @@ def test_groupby_partials_on_cuda_matches_cpu(cuda, rng, groups, executors):
 def test_groupby_local_on_cuda(cuda, tmp_path, extra, kernel):
     before = dict(_build.LAUNCHES)
     rc = cli.main(["GroupByLocal", "--device=gpu", "--input_size", "1000",
-                   "1048576", "--iterations=2",
+                   "1048576", "4194304", "--iterations=2",
                    f"--report_path={tmp_path / 'r.csv'}", *extra])
     assert rc == 0
     results = populate_registry().find("GroupByLocal").get_results()
-    assert len(results) == 4 and all(r.result.valid for r in results)
+    assert len(results) == 6 and all(r.result.valid for r in results)
     assert _build.LAUNCHES[kernel] > before[kernel]
     lines = open(tmp_path / "r.csv").read().splitlines()
     assert lines[0] == ("device_type,buf_size_bytes,total_time,"
@@ -1905,12 +1980,19 @@ def test_constant_dwarfs_on_cuda(cuda, capsys, name):
     assert len(populate_registry().find(name).get_results()) == 0
 
 
+# each DwarfKind's main-path size through the API
+API_FULL = {"Sort": 1 << 22, "GroupBy": 1 << 22, "Join": 1 << 20,
+            "Scan": 1 << 24}
+
+
+@pytest.mark.parametrize("full", [False, True])
 @pytest.mark.parametrize("kind", list(DwarfKind))
-def test_api_on_cuda(cuda, kind):
-    conf = RunConfig(device=ApiDeviceType.GPU, input_size=65536,
+def test_api_on_cuda(cuda, kind, full):
+    n = API_FULL[kind.name] if full else 65536
+    conf = RunConfig(device=ApiDeviceType.GPU, input_size=n,
                      iterations=2, dwarf=kind)
     ms = DwarfBench().make_measurements(conf)
-    assert [m.data_size for m in ms] == [65536, 65536]
+    assert [m.data_size for m in ms] == [n, n]
     impl = {"Scan": "DPLScanCuda", "Join": "JoinOmnisciCuda",
             "GroupBy": "GroupByCuda", "Sort": "RadixCuda"}[kind.name]
     results = populate_registry().find(impl).get_results()
@@ -1953,34 +2035,35 @@ def _pairs(a, b):
     return ca[b], int(ca[b].sum())
 
 
+# each builder's options; "n" stands for the rows a chip holds
 _DIST_JOINS = {
-    "dist_csr_join": dict(shuffle_capacity=1 << 16),
-    "dist_csr_join dense": dict(shuffle_capacity=1 << 16, dense=True),
+    "dist_csr_join": dict(shuffle_capacity="n"),
+    "dist_csr_join dense": dict(shuffle_capacity="n", dense=True),
     "dist_csr_join_ring": {},
     "dist_csr_join_ring dense": dict(dense=True),
-    "dist_csr_join_2d": dict(cap_ici=1 << 16, cap_dcn=1 << 16),
-    "dist_csr_join_2d dense": dict(cap_ici=1 << 16, cap_dcn=1 << 16,
-                                   dense=True),
+    "dist_csr_join_2d": dict(cap_ici="n", cap_dcn="n"),
+    "dist_csr_join_2d dense": dict(cap_ici="n", cap_dcn="n", dense=True),
     "dist_csr_join_ring_2d": {},
 }
 
 
+@pytest.mark.parametrize("n", [1 << 16, 1 << 20])
 @pytest.mark.parametrize("name", list(_DIST_JOINS))
-def test_dist_joins_on_one_nccl_rank(nccl_meshes, rng, name):
+def test_dist_joins_on_one_nccl_rank(nccl_meshes, rng, name, n):
     """Per-B-row counts (a world of one receives its rows in order), the
-    totals and zero overflow against the host; the dense builds launch the
-    histogram kernel, the general ones compact_mask."""
+    totals and zero overflow against the host, at 2^16 rows and at the
+    bench's 2^20; the dense builds launch the histogram kernel, the general
+    ones compact_mask."""
     from dwarf_bench_tpu_torch import parallel
 
-    n = 1 << 16
     a = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
     b = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
     per_row, pairs = _pairs(a, b)
     builder, *dense = name.split()
     mesh = nccl_meshes[1] if builder.endswith("_2d") else nccl_meshes[0]
-    fn = getattr(parallel, builder)(mesh, rows_per_chip=n,
-                                    distinct_cap=1 << 14, ht_size=1 << 15,
-                                    **_DIST_JOINS[name])
+    fn = getattr(parallel, builder)(
+        mesh, rows_per_chip=n, distinct_cap=1 << 14, ht_size=1 << 15,
+        **{k: n if v == "n" else v for k, v in _DIST_JOINS[name].items()})
     before = dict(_build.LAUNCHES)
     out = fn(*parallel.shard_rows(mesh, a, b))
     kernel = "histogram" if dense else "compact_mask"
@@ -1992,11 +2075,11 @@ def test_dist_joins_on_one_nccl_rank(nccl_meshes, rng, name):
         assert int(out[3]) == 0
 
 
-def test_dist_csr_join_skew_on_one_nccl_rank(nccl_meshes, rng):
+@pytest.mark.parametrize("n", [1 << 16, 1 << 20])
+def test_dist_csr_join_skew_on_one_nccl_rank(nccl_meshes, rng, n):
     from dwarf_bench_tpu_torch import parallel
 
     mesh = nccl_meshes[0]
-    n = 1 << 16
     a = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
     b = rng.integers(1, 10000, n, endpoint=True).astype(np.uint32)
     a[rng.random(n) < 0.6] = 7
@@ -2012,13 +2095,13 @@ def test_dist_csr_join_skew_on_one_nccl_rank(nccl_meshes, rng):
     assert int(total) % (1 << 32) == pairs % (1 << 32) and int(ov) == 0
 
 
-def test_dist_hash_join_rows_on_one_nccl_rank(nccl_meshes):
+@pytest.mark.parametrize("n", [1 << 16, 1 << 20])
+def test_dist_hash_join_rows_on_one_nccl_rank(nccl_meshes, n):
     from dwarf_bench_tpu_torch import parallel
     from dwarf_bench_tpu_torch.common.datagen import make_unique_random
     from dwarf_bench_tpu_torch.ops.join import seq_join_oracle
 
     mesh = nccl_meshes[0]
-    n = 1 << 16
     cols = [make_unique_random(n, seed=s) for s in (21, 22, 23, 24)]
     before = _build.LAUNCHES["compact_mask"]
     k, a, b, cnt, ov = parallel.dist_hash_join_rows(
@@ -2033,7 +2116,8 @@ def test_dist_hash_join_rows_on_one_nccl_rank(nccl_meshes):
                           seq_join_oracle(*cols))
 
 
-@pytest.mark.parametrize("groups,n", [(64, 1 << 18), (1 << 16, 1 << 16)])
+@pytest.mark.parametrize("groups,n", [(64, 1 << 18), (1 << 16, 1 << 16),
+                                      (64, 1 << 22), (1 << 16, 1 << 20)])
 def test_dist_groupbys_on_one_nccl_rank(nccl_meshes, rng, groups, n):
     from dwarf_bench_tpu_torch import parallel
 
@@ -2053,7 +2137,9 @@ def test_dist_groupbys_on_one_nccl_rank(nccl_meshes, rng, groups, n):
 
 
 @pytest.mark.parametrize("n,thr,kernel", [(1 << 20, 5, "chunk_stats"),
-                                          (1 << 16, 5000, "filter")])
+                                          (1 << 16, 5000, "filter"),
+                                          (1 << 24, 5, "chunk_stats"),
+                                          (1 << 20, 5000, "filter")])
 def test_dist_filter_on_one_nccl_rank(nccl_meshes, rng, n, thr, kernel):
     from dwarf_bench_tpu_torch import parallel
 
@@ -2068,11 +2154,12 @@ def test_dist_filter_on_one_nccl_rank(nccl_meshes, rng, n, thr, kernel):
     assert np.array_equal(out[: hits.size].cpu().numpy(), hits)
 
 
-def test_dist_sort_on_one_nccl_rank(nccl_meshes, rng):
+@pytest.mark.parametrize("n", [1 << 18, 1 << 22])
+def test_dist_sort_on_one_nccl_rank(nccl_meshes, rng, n):
     from dwarf_bench_tpu_torch import parallel
 
     mesh = nccl_meshes[0]
-    x = rng.integers(0, 1 << 32, 1 << 18, dtype=np.uint64).astype(np.uint32)
+    x = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
     out, valid, ov = parallel.dist_sort(mesh, x.size)(
         parallel.shard_rows(mesh, x))
     v = int(valid)
@@ -2100,6 +2187,15 @@ def test_shuffles_on_one_nccl_rank(nccl_meshes, rng):
         k, (v,), 1, 1, n, n, mesh2.get_group("dcn"), mesh2.get_group("ici"))
     assert int(rcnt[0]) == n and int(ov) == 0
     assert torch.equal(rk[0], k) and torch.equal(rv[0][0], v)
+
+
+def test_dryrun_on_the_card(cuda):
+    """``python -m dwarf_bench_tpu_torch.dryrun``: one NCCL rank a card."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "dwarf_bench_tpu_torch.dryrun"],
+        capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"dryrun_multichip({torch.cuda.device_count()}) OK" in proc.stdout
 
 
 def test_ops_layer_names_on_the_card(cuda, rng):
@@ -2132,37 +2228,65 @@ def test_ops_layer_names_on_the_card(cuda, rng):
 
 # -- the scripts (dwarf_bench_tpu_torch/scripts/) ------------------------------
 
-def test_hash_hit50_on_the_card(cuda, tmp_path):
-    """The 50 %-hit harness at 2^20 on the card: both phases validated on
-    the device (it raises otherwise), the probes through the merge engine,
-    9 GPU rows a phase."""
+@pytest.mark.parametrize("grid", sorted(sweeps.GRIDS))
+def test_sweep_grid_on_the_card(cuda, tmp_path, capsys, grid):
+    """A grid of ``scripts/sweeps.py`` at its largest size (2^27 rows for
+    the large grids) and its smallest, 2 iterations, each size a CLI process
+    that exits 0 with every run valid; ``report.py`` over each CSV lists
+    both sizes."""
+    from dwarf_bench_tpu_torch.scripts import report
+
+    want = {max(sweeps.GRIDS[grid].sizes), min(sweeps.GRIDS[grid].sizes)}
+    done = sweeps.run_grid(grid, str(tmp_path), ("gpu",), sizes=sorted(want),
+                           iterations=2, timeout=900)
+    assert done
+    for sweep in done.values():
+        assert not sweep.failed and not sweep.skipped, sweep
+        assert set(sweep.ran) == want
+    capsys.readouterr()
+    for csv in sorted(tmp_path.glob("*.csv")):
+        assert report.main([str(csv), "--column", "kernel_time_ms"]) == 0
+        listed = {(line.split()[0], int(line.split()[1]))
+                  for line in capsys.readouterr().out.splitlines()[1:]}
+        assert listed == {("GPU", 4 * size) for size in want}, csv
+
+
+@pytest.mark.parametrize("lg", [20, 24])
+def test_hash_hit50_on_the_card(cuda, tmp_path, lg):
+    """The 50 %-hit harness at 2^20 and at BASELINE config #4's 2^24 on the
+    card: both phases validated on the device (it raises otherwise), the
+    probes through the merge engine, 9 GPU rows a phase."""
     from dwarf_bench_tpu_torch.scripts import hash_hit50
 
     before = dict(_build.LAUNCHES)
-    found = hash_hit50.run(20, "all", cuda, str(tmp_path))
+    found = hash_hit50.run(lg, "all", cuda, str(tmp_path))
     for k in ("merge_bitonic", "merge_fill", "compact_mask"):
         assert _build.LAUNCHES[k] > before[k]
-    half = 1 << 19
+    half = 1 << (lg - 1)
     for f in found.values():
         assert f.is_cuda and bool(f[:half].all()) and not bool(f[half:].any())
     rows = (tmp_path / "report_hash_hit50.csv").read_text().splitlines()[1:]
     assert len(rows) == 18
-    assert all(r.startswith(f"GPU,{4 << 20},") for r in rows)
+    assert all(r.startswith(f"GPU,{4 << lg},") for r in rows)
 
 
-def test_scaling_world_of_one_on_the_card(cuda, tmp_path):
-    """scaling.py on an NCCL world of one rank at 2^16 rows: the five ops
-    timed with zero overflow (a rank raises otherwise), the card's rates
-    and the rank's launches in the compute file."""
+@pytest.mark.parametrize("lg", [16, 20])
+def test_scaling_world_of_one_on_the_card(cuda, tmp_path, capsys,
+                                          monkeypatch, lg):
+    """scaling.py on an NCCL world of one rank at 2^16 and 2^20 rows: the
+    five ops timed with zero overflow (a rank raises otherwise), the card's
+    rates and the rank's launches in the compute file; then the scaling
+    model from it and a bench line this card printed."""
     import json
+
+    from dwarf_bench_tpu_torch import bench
 
     path = tmp_path / "compute.json"
     proc = subprocess.run(
         [sys.executable, "-m", "dwarf_bench_tpu_torch.scripts.scaling",
-         "--device", "gpu", "--rows_per_chip", str(1 << 16),
+         "--device", "gpu", "--rows_per_chip", str(1 << lg),
          "--compute_json", str(path)],
-        capture_output=True, text=True, timeout=600,
-        cwd=pathlib.Path(__file__).resolve().parents[1])
+        capture_output=True, text=True, timeout=600, cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = [json.loads(x) for x in proc.stdout.splitlines()
              if x.startswith("{")]
@@ -2174,6 +2298,19 @@ def test_scaling_world_of_one_on_the_card(cuda, tmp_path):
     assert all(v > 0 for v in got["rows_per_s"].values())
     assert got["launches"]["histogram"] > 0
     assert got["launches"]["groupby_small"] > 0
+    line = _bench_line(bench, capsys, monkeypatch, full=False)
+    (tmp_path / "bench.json").write_text(json.dumps(line) + "\n")
+    proc = subprocess.run(
+        [sys.executable, "-m", "dwarf_bench_tpu_torch.scripts.scaling_model",
+         "--rows-per-chip", str(1 << lg), "--bench_json",
+         str(tmp_path / "bench.json"), "--compute_json", str(path), "--out",
+         str(tmp_path)], capture_output=True, text=True, timeout=600,
+        cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    model = json.loads((tmp_path / "scaling_model.json").read_text())
+    assert len(model["ops"]) == 6
+    assert all(set(op[p]) == {"8", "32", "256"} for op in model["ops"].values()
+               for p in ("projection", "projection_world_of_one"))
 
 
 def test_release_kernels_runs_unpacked_without_nvcc(cuda, tmp_path):

@@ -1,5 +1,5 @@
-"""dwarf_bench_tpu_torch and chip_smoke.py import no JAX, neither directly
-nor through the JAX package."""
+"""dwarf_bench_tpu_torch imports no JAX, neither directly nor through the
+JAX package."""
 
 import ast
 import pathlib
@@ -9,9 +9,7 @@ import sys
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-SOURCES = sorted((REPO / "dwarf_bench_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"
-]
+SOURCES = sorted((REPO / "dwarf_bench_tpu_torch").rglob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "dwarf_bench_tpu")
 
 
@@ -37,7 +35,7 @@ def test_import_loads_no_jax():
     code = (
         "import sys\n"
         "import dwarf_bench_tpu_torch, dwarf_bench_tpu_torch.cli\n"
-        "import dwarf_bench_tpu_torch.ops.csr_join, chip_smoke\n"
+        "import dwarf_bench_tpu_torch.ops.csr_join\n"
         "import dwarf_bench_tpu_torch.ops.scan, dwarf_bench_tpu_torch.dwarfs.scan\n"
         "import dwarf_bench_tpu_torch.ops.cuckoo, dwarf_bench_tpu_torch.ops.join\n"
         "import dwarf_bench_tpu_torch.ops.bucket_hash, dwarf_bench_tpu_torch.ops.reduce\n"
