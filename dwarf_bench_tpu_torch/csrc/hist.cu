@@ -3,13 +3,16 @@
 // histogram replaces dwarf_bench_tpu/ops/hist_pallas.py:119
 // histogram_16k_swar_pallas: (nbins,) int32 counts, nbins = hi_bins * 128, of
 // int32 keys; a key whose uint32 value is >= nbins (negatives, EMPTY,
-// padding) counts nowhere. The TPU kernel builds SWAR byte one-hots and
-// counts them on the MXU because the TPU has no atomics. Here each block
-// counts its share of the keys into a private copy of the bins in shared
-// memory (64 KB at nbins = 16384, so dynamic shared memory above the 48 KB
-// static limit) with shared-memory atomics, and the copies are merged with
-// plain loads and stores, in one launch that writes every bin of the output
-// once:
+// padding) counts nowhere. With a shift s (one int32, read on the device:
+// the counting sort's min) a key counts as uint32(k - s), subtracted as each
+// key is loaded, so the sort never writes the shifted copy of its column
+// that dwarf_bench_tpu/ops/sort.py:148 makes. The TPU kernel builds SWAR
+// byte one-hots and counts them on the MXU because the TPU has no atomics.
+// Here each block counts its share of the keys into a private copy of the
+// bins in shared memory (64 KB at nbins = 16384, so dynamic shared memory
+// above the 48 KB static limit) with shared-memory atomics, and the copies
+// are merged with plain loads and stores, in one launch that writes every
+// bin of the output once:
 //   - keys are read 16 bytes a thread, two vectors in flight, from the first
 //     16-byte boundary (scalar loads take the head before it and the ragged
 //     tail, in the same launch);
@@ -197,21 +200,22 @@ __device__ __forceinline__ void add_owned4(uint32_t* bins, int4 kk, int4 vv,
   }
 }
 
-// Vectors v and v + step of k4 (an out-of-range one counts nowhere).
+// Vectors v and v + step of k4; one past nvec is four keys `pad`, which
+// count nowhere.
 __device__ __forceinline__ void load_keys(const int4* k4, int64_t v,
                                           int64_t step, int64_t nvec,
-                                          int4 (&kk)[2]) {
+                                          int32_t pad, int4 (&kk)[2]) {
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
     const int64_t i = v + u * step;
-    kk[u] = i < nvec ? k4[i] : make_int4(-1, -1, -1, -1);
+    kk[u] = i < nvec ? k4[i] : make_int4(pad, pad, pad, pad);
   }
 }
 
-// Counts one key.
+// Counts one key, in bin uint32(k) - shift.
 __device__ __forceinline__ void count_key(uint32_t* bins, int32_t k,
-                                          uint32_t nbins) {
-  const uint32_t u = static_cast<uint32_t>(k);
+                                          uint32_t nbins, uint32_t shift) {
+  const uint32_t u = static_cast<uint32_t>(k) - shift;
   if (u < nbins) atomicAdd(bins + u, 1u);
 }
 
@@ -242,6 +246,9 @@ __device__ __forceinline__ void add_word(uint32_t (&sum)[8], uint4 v) {
 
 // keys[0, head) lie before the first 16-byte boundary, then nvec int4
 // vectors, then the ragged tail up to n. out (nbins int32) gets every bin.
+// With kShift a key k counts in bin uint32(k) - shift, the shift read once a
+// lane from *shift_ptr when it is not null, else shift_val; without it the
+// kernel reads no shift and subtracts nothing.
 // With more than one block, rows holds a copy of nbins words a block (of
 // 16-bit bins with kNarrow: every block counts fewer than 2^16 keys) and
 // counters three words, zero, left zero: the blocks' start tickets, the
@@ -249,12 +256,13 @@ __device__ __forceinline__ void add_word(uint32_t (&sum)[8], uint4 v) {
 // most the blocks, and nbins / mergers a multiple of 8. With more than one
 // block, every block of the grid must be resident at once (a cooperative
 // launch).
-template <int kThreads, bool kNarrow>
+template <int kThreads, bool kNarrow, bool kShift>
 __global__ void __launch_bounds__(kThreads)
     histogram_kernel(const int32_t* __restrict__ keys, int64_t n,
                      int64_t head, int64_t nvec, uint32_t nbins,
-                     uint32_t* __restrict__ out, uint32_t* rows,
-                     unsigned* counters, int mergers) {
+                     const int32_t* __restrict__ shift_ptr,
+                     uint32_t shift_val, uint32_t* __restrict__ out,
+                     uint32_t* rows, unsigned* counters, int mergers) {
   extern __shared__ uint4 bins4[];
   uint32_t* bins = reinterpret_cast<uint32_t*>(bins4);
   __shared__ uint32_t s_start;
@@ -269,27 +277,33 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t tid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t step = (int64_t)gridDim.x * kThreads;
   const int4* k4 = reinterpret_cast<const int4*>(keys + head);
+  uint32_t shift = 0;
+  if constexpr (kShift) {
+    shift = shift_ptr ? static_cast<uint32_t>(__ldg(shift_ptr)) : shift_val;
+  }
+  // the padding past the keys: bin 0xFFFFFFFF once shifted (-1 unshifted)
+  const int32_t pad = static_cast<int32_t>(shift - 1u);
   int4 kk[2];
-  load_keys(k4, tid, step, nvec, kk);
+  load_keys(k4, tid, step, nvec, pad, kk);
   for (uint32_t q = threadIdx.x; q < nq; q += kThreads) {
     bins4[q] = make_uint4(0, 0, 0, 0);
   }
   __syncthreads();
   for (int64_t v = tid; v < nvec; v += 2 * step) {
     int4 next[2];
-    load_keys(k4, v + 2 * step, step, nvec, next);
+    load_keys(k4, v + 2 * step, step, nvec, pad, next);
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      count_key(bins, kk[u].x, nbins);
-      count_key(bins, kk[u].y, nbins);
-      count_key(bins, kk[u].z, nbins);
-      count_key(bins, kk[u].w, nbins);
+      count_key(bins, kk[u].x, nbins, shift);
+      count_key(bins, kk[u].y, nbins, shift);
+      count_key(bins, kk[u].z, nbins, shift);
+      count_key(bins, kk[u].w, nbins, shift);
       kk[u] = next[u];
     }
   }
   if (tid < 8) {  // threads 0-3 the head, 4-7 the tail
     const int64_t i = tid < 4 ? tid : head + 4 * nvec + tid - 4;
-    if (tid < 4 ? i < head : i < n) count_key(bins, keys[i], nbins);
+    if (tid < 4 ? i < head : i < n) count_key(bins, keys[i], nbins, shift);
   }
   __syncthreads();
 
@@ -741,13 +755,14 @@ cudaLaunchConfig_t cluster_config(int blocks, int cluster, int threads,
   return cfg;
 }
 
-template <bool kNarrow>
+template <bool kNarrow, bool kShift>
 cudaError_t launch_histogram(const int32_t* keys, int64_t n, int64_t head,
-                             int64_t nvec, uint32_t nbins, uint32_t* out,
-                             int32_t blocks, int32_t mergers,
+                             int64_t nvec, uint32_t nbins,
+                             const int32_t* shift_ptr, uint32_t shift_val,
+                             uint32_t* out, int32_t blocks, int32_t mergers,
                              int32_t* scratch, cudaStream_t s) {
   static std::atomic<uint64_t> ready{0};
-  auto kernel = histogram_kernel<kHistThreads, kNarrow>;
+  auto kernel = histogram_kernel<kHistThreads, kNarrow, kShift>;
   cudaError_t err = dbt::configure(kernel, false, ready);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -763,7 +778,7 @@ cudaError_t launch_histogram(const int32_t* keys, int64_t n, int64_t head,
   cfg.attrs = &attr;
   cfg.numAttrs = blocks > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(
-      &cfg, kernel, keys, n, head, nvec, nbins, out,
+      &cfg, kernel, keys, n, head, nvec, nbins, shift_ptr, shift_val, out,
       reinterpret_cast<uint32_t*>(scratch + kCounterWords),
       reinterpret_cast<unsigned*>(scratch), mergers);
   return dbt::launched(err);
@@ -778,10 +793,14 @@ cudaError_t launch_histogram(const int32_t* keys, int64_t n, int64_t head,
 // launch is cooperative, so a grid the context cannot hold at once returns
 // cudaErrorCooperativeLaunchTooLarge and runs nothing; scratch holds
 // dbt_histogram_scratch(nbins, blocks) int32 whose first 4 (the counters)
-// are zero, and leaves them zero. keys needs only int32 alignment.
+// are zero, and leaves them zero. keys needs only int32 alignment. A key k
+// counts in bin uint32(k - shift), the shift *shift_ptr (one int32 on the
+// device) when shift_ptr is not null, else shift_val; with neither (null and
+// 0) the kernel built without a shift runs.
 extern "C" int dbt_histogram(const int32_t* keys, int64_t n, int32_t* out,
                              int32_t nbins, int32_t blocks, int32_t mergers,
-                             int32_t* scratch, void* stream) {
+                             int32_t* scratch, const int32_t* shift_ptr,
+                             int32_t shift_val, void* stream) {
   if (nbins <= 0 || nbins % 128 || nbins > (1 << 14) || blocks < 1 ||
       mergers < 1 || mergers > blocks || nbins % (8 * mergers) ||
       (blocks > 1 && scratch == nullptr)) {
@@ -797,12 +816,16 @@ extern "C" int dbt_histogram(const int32_t* keys, int64_t n, int32_t* out,
   const int64_t most = 4 * kHistThreads * ((nvec + lanes - 1) / lanes) + 8;
   const uint32_t nb = static_cast<uint32_t>(nbins);
   uint32_t* o = reinterpret_cast<uint32_t*>(out);
-  return static_cast<int>(
-      most < (1 << 16)
-          ? launch_histogram<true>(keys, n, head, nvec, nb, o, blocks,
-                                   mergers, scratch, s)
-          : launch_histogram<false>(keys, n, head, nvec, nb, o, blocks,
-                                    mergers, scratch, s));
+  const bool narrow = most < (1 << 16);
+  const bool shifted = shift_ptr != nullptr || shift_val != 0;
+  const auto launch =
+      narrow ? (shifted ? launch_histogram<true, true>
+                        : launch_histogram<true, false>)
+             : (shifted ? launch_histogram<false, true>
+                        : launch_histogram<false, false>);
+  return static_cast<int>(launch(keys, n, head, nvec, nb, shift_ptr,
+                                 static_cast<uint32_t>(shift_val), o, blocks,
+                                 mergers, scratch, s));
 }
 
 // int32 scratch words of dbt_histogram with `blocks` copies of nbins bins:

@@ -51,7 +51,8 @@ _I64 = ctypes.c_int64
 # name -> (argtypes, restype). Every pointer and the stream are c_void_p:
 # without argtypes ctypes would pass a Python int as a 32-bit C int.
 _SIGNATURES = {
-    "dbt_histogram": ([_P, _I64, _P, _I32, _I32, _I32, _P, _P], ctypes.c_int),
+    "dbt_histogram": (
+        [_P, _I64, _P, _I32, _I32, _I32, _P, _P, _I32, _P], ctypes.c_int),
     "dbt_histogram_scratch": ([_I32, _I32], _I64),
     "dbt_weighted_histogram": (
         [_P, _P, _I64, _P, _I32, _I32, _I32, _P, _P], ctypes.c_int),

@@ -4,7 +4,11 @@ PyTorch twins.
 ``histogram`` is the contract of ``dwarf_bench_tpu/ops/hist_pallas.py``
 ``histogram_16k_swar_pallas`` (and ``ops/sort.histogram_16k``): a
 (hi_bins·128,) int32 count of keys, where a key whose uint32 value is at or
-above hi_bins·128 (negatives, EMPTY, padding) counts nowhere. Its kernel
+above hi_bins·128 (negatives, EMPTY, padding) counts nowhere. With a
+``shift`` (an int, or a one-element int32 tensor on the keys' device, read
+there) it counts the keys ``k - shift``, wrapping as int32 subtraction does,
+subtracted as the kernel loads each key: the counting sort's histogram of
+``x - min`` without the shifted column. Its kernel
 keeps a copy of the bins in each block's shared memory and merges the
 copies through a lasting scratch a stream, the last blocks to start adding
 a slice of the bins each, in one cooperative launch that writes every bin
@@ -107,9 +111,13 @@ def _check_hi_bins(op: str, hi_bins: int, most: int) -> int:
     return hi_bins * 128
 
 
-def histogram_plain(k: torch.Tensor, hi_bins: int = 128) -> torch.Tensor:
+def histogram_plain(k: torch.Tensor, hi_bins: int = 128,
+                    shift: Optional[_build.Int32] = None) -> torch.Tensor:
     nbins = _check_hi_bins("histogram", hi_bins, MAX_HIST_HI_BINS)
     ku = as_u32(k)
+    if shift is not None:
+        s = _build.int32_tensor("histogram", "shift", shift, k.device)
+        ku = (ku - as_u32(s)) & 0xFFFFFFFF
     ku = ku[ku < nbins]
     return torch.bincount(ku, minlength=nbins).to(torch.int32)
 
@@ -152,14 +160,16 @@ def merge_bytes(hi_bins: int, n: int) -> int:
     return 2 * blocks * hi_bins * 128 * width
 
 
-def histogram(k: torch.Tensor, hi_bins: int = 128) -> torch.Tensor:
+def histogram(k: torch.Tensor, hi_bins: int = 128,
+              shift: Optional[_build.Int32] = None) -> torch.Tensor:
     sp = trace.begin("kernel.histogram")
     try:
         nbins = _check_hi_bins("histogram", hi_bins, MAX_HIST_HI_BINS)
         device = _build.check_vectors("histogram", k)
         if device.type == "cpu":
-            return histogram_plain(k, hi_bins)
-        return launch_histogram(k, nbins, *histogram_plan(hi_bins, k.numel()))
+            return histogram_plain(k, hi_bins, shift)
+        return launch_histogram(k, nbins, *histogram_plan(hi_bins, k.numel()),
+                                shift=shift)
     finally:
         if sp:
             sp.close()
@@ -173,9 +183,13 @@ def _scratch_words(nbins: int, blocks: int) -> int:
 
 
 def launch_histogram(k: torch.Tensor, nbins: int, blocks: int,
-                     mergers: int) -> torch.Tensor:
+                     mergers: int,
+                     shift: Optional[_build.Int32] = None) -> torch.Tensor:
     """The count-histogram kernel on a checked CUDA vector under an
-    explicit plan (``histogram_plan`` gives the wrapper's)."""
+    explicit plan (``histogram_plan`` gives the wrapper's). Without a
+    ``shift`` the kernel built with none runs."""
+    shift_t, shift_val = (None, 0) if shift is None else _build.pack_int32(
+        "histogram", "shift", shift, k.device)
     out = torch.empty(nbins, dtype=torch.int32, device=k.device)
     # the counters are zero when made and left zero; every copy is written
     # in full before it is read
@@ -183,7 +197,8 @@ def launch_histogram(k: torch.Tensor, nbins: int, blocks: int,
         "histogram", k.device, _scratch_words(nbins, blocks))
     _build.launch("dbt_histogram", k.device, k.data_ptr(), k.numel(),
                   out.data_ptr(), nbins, blocks, mergers,
-                  None if scratch is None else scratch.data_ptr())
+                  None if scratch is None else scratch.data_ptr(),
+                  None if shift_t is None else shift_t.data_ptr(), shift_val)
     _build.LAUNCHES["histogram"] += 1
     return out
 

@@ -7,9 +7,10 @@ Engines:
 
   * the counting sort (``sort_counting``, ``_sort_counting_shifted``) for
     columns whose span after a min-shift is below 2^14 (the benchmark's
-    uniform [1, 10000] columns): a histogram kernel (``hist_cuda``) and
-    one kernel that writes each sorted row from the bin starts
-    (``expand_runs_cuda``). The input is never moved.
+    uniform [1, 10000] columns): a histogram kernel (``hist_cuda``) that
+    subtracts the min as it loads each key and one kernel that writes each
+    sorted row from the bin starts (``expand_runs_cuda``), both reading the
+    min on the card. The input is never moved or copied.
   * ``torch.sort`` where the JAX package leaves the sort to XLA
     (``sort_auto``'s wide-span branch).
 
@@ -54,7 +55,9 @@ def _expand_runs(
 def _shifted_histogram(
     x: torch.Tensor, minv: torch.Tensor, hi_bins: int = 128
 ) -> torch.Tensor:
-    return histogram_dispatch((x - minv).to(torch.int32), hi_bins=hi_bins)
+    """The histogram of ``x - minv``: the kernel subtracts the min, read on
+    the card, as it loads each key, so no shifted column is written."""
+    return hist_cuda.histogram(x, hi_bins=hi_bins, shift=minv)
 
 
 def _sort_counting_shifted(

@@ -39,9 +39,9 @@ time an acquisition; (group ``diag``) ``_gb_diag_kernel_factory`` in its
 three modes at 2^22 rows; (group ``groupby``) ``groupby_cuda.groupby_small``
 at G = 64 and 4096 (GroupByLocal's keys and uniform keys) over 2^22 rows,
 on one hot key and on a view off 4 bytes, against ``index_add_`` and
-``reduce_sum`` over the same 33.6 MB; (group ``large``) the sweeps' 2^27 rows: the
-count histogram at hi80, the cumsum over a column of Radix's bin starts,
-phase A, the scan tail over 2^20 chunks and ``filter_sparse`` at x < 5;
+``reduce_sum`` over the same 33.6 MB; (group ``large``) the sweeps' 2^27
+rows: the count histogram at hi80, unshifted and shifted by the column's
+min, the cumsum over a column of Radix's bin starts, phase A, the scan tail over 2^20 chunks and ``filter_sparse`` at x < 5;
 (group ``expand``) the counting sort's run expansion, ``sort._expand_runs``
 and its kernel ``expand_runs_cuda.expand_runs`` where the checkout has
 one, at Radix's hi80 2^22 and 2^27 and at hi128 2^27, with the launches a
@@ -83,6 +83,7 @@ the call's device time and its own gaps only.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -525,7 +526,9 @@ def scan_lines(root_label: str, dev, emit) -> None:
 def large_lines(root_label: str, dev, emit) -> None:
     """The sweeps' largest size, 2^27 rows (512 MB of int32 in [1,
     10000]): the count histogram at Radix's hi80 (a block counts more than
-    2^16 keys, so its copies are 32-bit) against ``torch.bincount``, the
+    2^16 keys, so its copies are 32-bit) against ``torch.bincount``, and,
+    where the checkout takes a shift, on the column itself with its min
+    subtracted on load, as the counting sort calls it, with exactness; the
     cumsum over 2^27 values (Radix's bin starts marked, the column the
     sort's run expansion scanned before it had a kernel of its own)
     against ``torch.cumsum``, phase A
@@ -557,6 +560,17 @@ def large_lines(root_label: str, dev, emit) -> None:
          4 * (n + nbins), copies_bytes=hist_cuda.merge_bytes(80, n))
     case("torch.bincount hi80 2^27",
          lambda v: torch.bincount(v, minlength=nbins), (k,), graph=False)
+    xd = t(x)
+    if "shift" in inspect.signature(hist_cuda.histogram).parameters:
+        # the column itself, its min subtracted as each key is loaded, the
+        # min read on the card as sort_auto passes it
+        minv = torch.min(xd)
+        exact = torch.equal(hist_cuda.histogram(xd, 80, shift=minv),
+                            hist_cuda.histogram(k, 80))
+        case("histogram hi80 2^27 shifted (Radix)",
+             lambda v, m: hist_cuda.histogram(v, 80, shift=m), (xd, minv),
+             4 * (n + nbins), copies_bytes=hist_cuda.merge_bytes(80, n),
+             exact=exact)
     del k
     counts = np.bincount(x - 1, minlength=nbins)
     starts = np.cumsum(counts) - counts
@@ -566,7 +580,6 @@ def large_lines(root_label: str, dev, emit) -> None:
     case("torch.cumsum 2^27",
          lambda v: torch.cumsum(v, 0, dtype=torch.int32), (s,), 8 * n)
     del s
-    xd = t(x)
     nch = n // 128
     x2 = xd.view(nch, 128)
     case("phase A 2^27 x<5", chunk_stats_cuda.chunk_stats, (x2, 5),

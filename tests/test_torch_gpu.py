@@ -54,8 +54,9 @@ from dwarf_bench_tpu_torch.ops import (
     vadd_cuda,
 )
 from dwarf_bench_tpu_torch.ops.chunk_stats import chunk_stats
+from dwarf_bench_tpu_torch.ops.primitives import wrap_i32
 from dwarf_bench_tpu_torch.scripts import sweeps
-from dwarf_bench_tpu_torch.utils.kernel_times import device_ops
+from dwarf_bench_tpu_torch.utils.kernel_times import device_ops, traced_kernels
 
 pytestmark = pytest.mark.gpu
 
@@ -76,30 +77,67 @@ def _t(a, device):
     return torch.from_numpy(np.array(a).astype(np.int64).astype(np.int32)).to(device)
 
 
+# the benchmark's small grid (radix_u10k.small_grid): 256 ... 65536 rows
+SMALL_GRID = tuple(1 << k for k in range(8, 17))
+
+# shifts of the count histogram (None: the kernel built without one): 1 and
+# minus half the bins by value, the rest as one-element tensors on the card:
+# the keys' min (as sort_auto passes it), the int32 extremes (k - s wraps)
+# and half the bins (keys pushed out of [0, nbins) drop)
+SHIFTS = [None, 1, "min", -(2**31), 2**31 - 1, "half", "-half"]
+
+
+def _shift(shift, k, nbins):
+    """A case of SHIFTS for the keys ``k``: an int, a tensor or None."""
+    if shift is None or shift == 1:
+        return shift
+    if shift == "-half":
+        return -(nbins // 2)
+    if shift == "min":
+        return torch.min(k)
+    value = nbins // 2 if shift == "half" else shift
+    return torch.tensor(value, dtype=torch.int32, device=k.device)
+
+
+def _histogram_of_shifted(k, hi_bins, shift):
+    """``histogram_plain`` of the column k - shift, wrapped to int32 and
+    made eagerly, as the sort made it before the kernel took the shift."""
+    if shift is None:
+        return hist_cuda.histogram_plain(k, hi_bins)
+    s = int(shift)
+    return hist_cuda.histogram_plain(wrap_i32(k.to(torch.int64) - s), hi_bins)
+
+
+@pytest.mark.parametrize("shift", SHIFTS)
 @pytest.mark.parametrize("hi_bins", [1, 80, 128])
 @pytest.mark.parametrize("n", [1, 4097, 1_000_003])
-def test_histogram(cuda, rng, hi_bins, n):
+def test_histogram(cuda, rng, hi_bins, n, shift):
     k = _t(rng.integers(-100, hi_bins * 128 + 100, n), cuda)
     k[: min(n, 3)] = torch.tensor([-(2**31), 2**31 - 1, -1][: min(n, 3)])
-    assert torch.equal(hist_cuda.histogram(k, hi_bins),
-                       hist_cuda.histogram_plain(k, hi_bins))
+    s = _shift(shift, k, hi_bins * 128)
+    assert torch.equal(hist_cuda.histogram(k, hi_bins, shift=s),
+                       _histogram_of_shifted(k, hi_bins, s))
 
 
+@pytest.mark.parametrize("shift", [None, "min", -(2**31)])
 @pytest.mark.parametrize("hi_bins,n", [(80, 1 << 22), (128, 1 << 20),
-                                       (8, 100_003), (128, 1), (80, 1 << 27)])
-def test_histogram_plan(cuda, rng, hi_bins, n):
+                                       (8, 100_003), (128, 1), (80, 1 << 27),
+                                       (128, 1 << 27)])
+def test_histogram_plan(cuda, rng, hi_bins, n, shift):
     """The wrapper's plan at the main-path shapes (Radix hi80 at 2^22 and at
-    the sweeps' 2^27, the JoinOmnisci build hi128 at 2^20) and at small
-    ones: its copies hold no more bins than the keys, in 32 bits at 2^27 (a
-    block counts more than 2^16 keys), and the result is exact."""
+    the sweeps' 2^27, hi128 at 2^27, the JoinOmnisci build hi128 at 2^20)
+    and at small ones: its copies hold no more bins than the keys, in 32
+    bits at 2^27 (a block counts more than 2^16 keys), and the result is
+    exact, unshifted and shifted."""
     blocks, mergers = hist_cuda.histogram_plan(hi_bins, n)
     assert blocks * hi_bins * 128 <= max(hi_bins * 128, n)
     assert mergers <= blocks and hi_bins * 128 % (8 * mergers) == 0
     if n == 1 << 27:
         assert not hist_cuda._narrow(hist_cuda.HIST_THREADS, blocks, n // 4)
     k = _t(rng.integers(-3, hi_bins * 128 + 3, n), cuda)
-    assert torch.equal(hist_cuda.histogram(k, hi_bins),
-                       hist_cuda.histogram_plain(k, hi_bins))
+    s = _shift(shift, k, hi_bins * 128)
+    assert torch.equal(hist_cuda.histogram(k, hi_bins, shift=s),
+                       _histogram_of_shifted(k, hi_bins, s))
 
 
 @pytest.mark.parametrize("blocks,mergers", [(1, 1), (5, 1), (5, 4), (16, 16),
@@ -139,12 +177,18 @@ def test_histogram_plan_the_card_cannot_hold_ends(cuda, hi_bins, blocks):
     assert "next call exact: True" in proc.stdout, proc.stdout
 
 
+@pytest.mark.parametrize("shift", [None, "min", -(2**31)])
 @pytest.mark.parametrize("off", [1, 2, 3])
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 4097, 1 << 20])
-def test_histogram_of_views_off_16_bytes(cuda, rng, off, n):
-    k = _t(rng.integers(-3, 128 * 128 + 3, n + off), cuda)[off:]
-    assert torch.equal(hist_cuda.histogram(k, 128),
-                       hist_cuda.histogram_plain(k, 128))
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 4097, 1 << 20] +
+                         list(SMALL_GRID))
+def test_histogram_of_views_off_16_bytes(cuda, rng, off, n, shift):
+    """Views 4, 8 and 12 bytes past a 16-byte boundary, as small_grid's
+    ranges lie, at hi80 and hi128 by turns, unshifted and shifted."""
+    hi_bins = 80 if n % 2 else 128
+    k = _t(rng.integers(-3, hi_bins * 128 + 3, n + off), cuda)[off:]
+    s = _shift(shift, k, hi_bins * 128)
+    assert torch.equal(hist_cuda.histogram(k, hi_bins, shift=s),
+                       _histogram_of_shifted(k, hi_bins, s))
 
 
 @pytest.mark.parametrize("hi_bins,n", [(80, 1 << 22), (128, 1 << 20),
@@ -157,10 +201,16 @@ def test_histogram_of_one_bin(cuda, hi_bins, n):
                            hist_cuda.histogram_plain(k, hi_bins))
 
 
-@pytest.mark.parametrize("hi_bins,n", [(80, 1 << 22), (128, 1 << 20)])
-def test_histogram_is_one_kernel_and_no_memset(cuda, rng, hi_bins, n):
+@pytest.mark.parametrize("shift", [None, "min"])
+@pytest.mark.parametrize("hi_bins,n", [(80, 1 << 22), (128, 1 << 20),
+                                       (80, 1 << 27)])
+def test_histogram_is_one_kernel_and_no_memset(cuda, rng, hi_bins, n, shift):
+    """With or without a shift tensor, read on the card: nothing else is
+    launched."""
     k = _t(rng.integers(0, 10000, n), cuda)
-    assert device_ops(hist_cuda.histogram, k, hi_bins) == (1, 0)
+    s = _shift(shift, k, hi_bins * 128)
+    assert device_ops(lambda v, m: hist_cuda.histogram(v, hi_bins, shift=m),
+                      k, s) == (1, 0)
 
 
 def test_histogram_back_to_back_and_on_two_streams(cuda, rng):
@@ -253,17 +303,15 @@ def test_cumsum_int_carry_makes_no_host_copy(cuda, rng, n):
     assert torch.equal(got_max, cumsum_cuda.cumsum_plain(x, 2**31 - 1))
 
 
-# the benchmark's small grid (radix_u10k.small_grid): 256 ... 65536 rows
-SMALL_GRID = tuple(1 << k for k in range(8, 17))
-
-
 @pytest.mark.parametrize("hi_bins,n", [(80, 1 << 27), (128, 1 << 27)]
                          + [(80, n) for n in SMALL_GRID])
 def test_expand_runs(cuda, rng, hi_bins, n):
     """The kernel exact against its twin at Radix's 2^27 rows (hi80 and
     hi128) and on the small grid, with an int and a tensor shift, one
     kernel and no memset a call; sort_auto on the column launches it once
-    and the cumsum kernel not at all."""
+    and the cumsum kernel not at all, and sort_auto and sort_counting are
+    exact. At 2^27 sort_auto's kernels are the min, the max, the histogram
+    and the run expansion: no elementwise x - min."""
     keys = rng.integers(0, hi_bins * 128, n)
     keys[0] = 0  # the column's min is 1
     counts = _t(np.bincount(keys, minlength=hi_bins * 128), cuda)
@@ -280,6 +328,16 @@ def test_expand_runs(cuda, rng, hi_bins, n):
             for k in ("histogram", "expand_runs", "cumsum")} == {
         "histogram": 1, "expand_runs": 1, "cumsum": 0}
     assert torch.equal(got, torch.sort(x).values)
+    assert torch.equal(sort.sort_counting(x), got)
+    if n == 1 << 27:
+        # a trace can drop a kernel, never add one: three calls launch at
+        # most four kernels each (min and max the two reductions), of these
+        # kinds only
+        kinds = ("reduce_kernel", "histogram_kernel", "expand_runs_kernel")
+        names = [e.name for e in traced_kernels(sort.sort_auto, x, k=3)
+                 if "Memcpy" not in e.name and "Memset" not in e.name]
+        found = [next((k for k in kinds if k in name), name) for name in names]
+        assert len(found) <= 3 * 4 and set(found) == set(kinds), names
 
 
 EXPAND_TILE = 8192  # rows a block of csrc/expand_runs.cu writes a tile

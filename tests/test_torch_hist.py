@@ -197,6 +197,53 @@ def test_histogram_plan(hi_bins, n):
         assert (blocks, mergers) == (64, 64)
 
 
+# shifts of the counting sort's histogram: small, the column's min (as the
+# sort passes it, a 0-dim tensor), both int32 extremes (k - s wraps) and
+# half the bins either way (keys pushed out of [0, nbins) drop)
+SHIFTS = [0, 1, "min", -(2**31), 2**31 - 1, "half", "-half"]
+
+
+def _shift_value(shift, k, nbins):
+    if shift == "min":
+        return int(k.min())
+    if shift in ("half", "-half"):
+        return nbins // 2 * (1 if shift == "half" else -1)
+    return shift
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+@pytest.mark.parametrize("shift", SHIFTS)
+@pytest.mark.parametrize("hi_bins", [1, 80, 128])
+def test_histogram_plain_with_a_shift(rng, hi_bins, shift, as_tensor):
+    """The twin with a shift, an int or a 0-dim int32 tensor, is the
+    bincount of as_u32(k - s) below nbins, wrapping as int32 does, and the
+    wrapper on a CPU tensor is the twin."""
+    nbins = hi_bins * 128
+    k = rng.integers(-100, nbins + 100, 20_011).astype(np.int32)
+    k[:3] = [-(2**31), 2**31 - 1, -1]
+    s = _shift_value(shift, k, nbins)
+    ku = (k.astype(np.int64) - s) % (1 << 32)
+    exp = np.bincount(ku[ku < nbins], minlength=nbins)
+    arg = torch.tensor(s, dtype=torch.int32) if as_tensor else s
+    got = hist_cuda.histogram_plain(_t(k), hi_bins, shift=arg)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), exp)
+    assert torch.equal(hist_cuda.histogram(_t(k), hi_bins, shift=arg), got)
+
+
+@pytest.mark.parametrize("shift", [-(2**31), -5000, 1, 2**31 - 1])
+def test_shifted_histogram_matches_swar_pallas(rng, shift):
+    """The shifted histogram is the JAX kernel's histogram of the shifted
+    keys, k - s wrapped to int32."""
+    k = rng.integers(-(2**31), 2**31, 1 << 12).astype(np.int32)
+    k[: 1 << 11] = rng.integers(0, 80 * 128, 1 << 11) + shift
+    shifted = ((k.astype(np.int64) - shift) % (1 << 32)).astype(np.uint32)
+    ref = np.asarray(histogram_16k_swar_pallas(
+        jnp.asarray(shifted.view(np.int32)), hi_bins=80, interpret=True))
+    got = hist_cuda.histogram(_t(k), hi_bins=80, shift=shift)
+    assert np.array_equal(got.numpy(), ref)
+
+
 def test_plain_twins_do_not_count_launches(rng):
     before = dict(_build.LAUNCHES)
     hist_cuda.histogram(_t(rng.integers(0, 100, 50)), hi_bins=8)
@@ -209,6 +256,10 @@ def test_plain_twins_do_not_count_launches(rng):
     lambda: hist_cuda.histogram(torch.zeros(8, dtype=torch.int32)[::2]),
     lambda: hist_cuda.histogram(torch.zeros((2, 2), dtype=torch.int32)),
     lambda: hist_cuda.histogram(torch.zeros(4, dtype=torch.int32), hi_bins=129),
+    lambda: hist_cuda.histogram(torch.zeros(4, dtype=torch.int32),
+                                shift=torch.zeros((), dtype=torch.int64)),
+    lambda: hist_cuda.histogram(torch.zeros(4, dtype=torch.int32),
+                                shift=torch.zeros(2, dtype=torch.int32)),
     lambda: hist_cuda.weighted_histogram(
         torch.zeros(4, dtype=torch.int32), torch.zeros(3, dtype=torch.int32)),
     lambda: hist_cuda.weighted_histogram(

@@ -35,10 +35,15 @@ def _u32(t):
 
 # -- sort -----------------------------------------------------------------
 
-SPANS = [(1, 10000), (-5000, 4000), (0, 12000), (-(2**31), 2**31 - 1)]
+# the counting sort's spans (hi80, hi80 across 0, hi128, then hi80 and hi128
+# at the int32 extremes, where the histogram's k - min is taken mod 2^32),
+# and one past 2^14 for torch.sort
+SPANS = [(1, 10000), (-5000, 4000), (0, 12000), (-(2**31), 2**31 - 1),
+         (-(2**31), -(2**31) + 9000), (2**31 - 12000, 2**31 - 1)]
+COUNTING_SPANS = SPANS[:3] + SPANS[4:]
 
 
-@pytest.mark.parametrize("lo,hi", SPANS[:3])
+@pytest.mark.parametrize("lo,hi", COUNTING_SPANS)
 def test_sort_counting(rng, lo, hi):
     x = rng.integers(lo, hi, 10_000, endpoint=True).astype(np.int32)
     ref = np.asarray(jsort.sort_counting(jnp.asarray(x)))
