@@ -32,7 +32,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from . import bitonic_cuda, compact_cuda, hashtable
+from . import bitonic_cuda, compact_cuda, hashtable, trace
 from .hashing import simple_hash
 from .merge_lookup import deltas
 from .primitives import as_u32, bias_u32, cummax, sort_by_key, wrap_i32
@@ -97,7 +97,9 @@ def build(a_keys: torch.Tensor, distinct_cap: int, ht_size: int,
 
     The key sort is unstable, as the JAX package's: ids within a key are in
     no particular order (the reference places them with atomic fetch_adds)
-    and only the id sets per key are defined."""
+    and only the id sets per key are defined. Counted in
+    ``trace.TAKEN["csr_join:general"]``."""
+    trace.take("csr_join", "general")
     n = a_keys.shape[0]
     device = a_keys.device
     ids = _iota(n, device) if row_ids is None else row_ids
@@ -274,40 +276,64 @@ def build_dense(a_keys: torch.Tensor, row_ids=None) -> DenseCsrTable:
     The sort is stable, so ids keep their row order within a key. That is
     the order the JAX package's packed one-word sort gives for n < 2^18
     without ``row_ids``; otherwise its pair sort is unstable and only the
-    id sets per key agree."""
-    n = a_keys.shape[0]
-    device = a_keys.device
-    ak = as_u32(a_keys)
-    valid = a_keys != EMPTY
-    minv = torch.min(torch.where(valid, ak, 0xFFFFFFFE))
-    rel_key = ak - minv
-    k = torch.where(valid, rel_key, -1).to(torch.int32)
-    counts = histogram_dispatch(k)
-    pos = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-    # EMPTY rows take the key 0xFFFF, past every valid (< 2^14) key
-    k16 = torch.where(valid, rel_key, 0xFFFF).to(torch.int32)
-    ids = torch.arange(n, dtype=torch.int32, device=device) \
-        if row_ids is None else row_ids
-    _, sid = sort_by_key(k16, ids, stable=True)
-    num_distinct = (counts > 0).sum(dtype=torch.int32)
-    # pos of any non-empty key is <= n - cnt; keys with cnt == 0 may wrap
-    # in the shift, and the probe masks them through found == False
-    pos64 = pos.to(torch.int64)
-    packed = wrap_i32((pos64 << 12) | counts.clamp(max=4095).to(torch.int64))
-    packed_ok = (counts.max() < 4096) & (n <= (1 << 20))
-    bucket_sums = counts.reshape(128, 128).sum(dim=1, dtype=torch.int32)
-    base128 = torch.cumsum(bucket_sums, 0, dtype=torch.int32) - bucket_sums
-    rel = pos - base128.repeat_interleave(128)
-    packed3 = wrap_i32(
-        (rel.to(torch.int64) << 10) | counts.clamp(max=1023).to(torch.int64)
-    )
-    packed3_ok = (
-        (rel.max() < (1 << 14)) & (counts.max() < 1024) & (n <= (1 << 24))
-    )
-    return DenseCsrTable(
-        wrap_i32(minv), counts, pos, sid, num_distinct, packed, packed_ok,
-        base128, packed3, packed3_ok,
-    )
+    id sets per key agree.
+
+    Counted in ``trace.TAKEN["csr_join:dense"]`` (``build`` counts
+    ``csr_join:general``). Under a profiler it opens the span
+    ``build_dense`` and its phases ``build_dense.histogram`` (the min, the
+    shift and the count histogram), ``.positions`` (the exclusive cumsum),
+    ``.id_sort`` (the 16-bit keys, the stable pair sort, the id gather) and
+    ``.layouts`` (``num_distinct`` and the TPU layouts); nothing is read
+    back to the host."""
+    trace.take("csr_join", "dense")
+    sp = trace.begin("build_dense")
+    try:
+        if sp:
+            sp.next("build_dense.histogram")
+        n = a_keys.shape[0]
+        device = a_keys.device
+        ak = as_u32(a_keys)
+        valid = a_keys != EMPTY
+        minv = torch.min(torch.where(valid, ak, 0xFFFFFFFE))
+        rel_key = ak - minv
+        k = torch.where(valid, rel_key, -1).to(torch.int32)
+        counts = histogram_dispatch(k)
+        if sp:
+            sp.next("build_dense.positions")
+        pos = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+        if sp:
+            sp.next("build_dense.id_sort")
+        # EMPTY rows take the key 0xFFFF, past every valid (< 2^14) key
+        k16 = torch.where(valid, rel_key, 0xFFFF).to(torch.int32)
+        ids = torch.arange(n, dtype=torch.int32, device=device) \
+            if row_ids is None else row_ids
+        _, sid = sort_by_key(k16, ids, stable=True)
+        if sp:
+            sp.next("build_dense.layouts")
+        num_distinct = (counts > 0).sum(dtype=torch.int32)
+        # pos of any non-empty key is <= n - cnt; keys with cnt == 0 may
+        # wrap in the shift, and the probe masks them through found == False
+        pos64 = pos.to(torch.int64)
+        packed = wrap_i32((pos64 << 12)
+                          | counts.clamp(max=4095).to(torch.int64))
+        packed_ok = (counts.max() < 4096) & (n <= (1 << 20))
+        bucket_sums = counts.reshape(128, 128).sum(dim=1, dtype=torch.int32)
+        base128 = torch.cumsum(bucket_sums, 0, dtype=torch.int32) \
+            - bucket_sums
+        rel = pos - base128.repeat_interleave(128)
+        packed3 = wrap_i32((rel.to(torch.int64) << 10)
+                           | counts.clamp(max=1023).to(torch.int64))
+        packed3_ok = (
+            (rel.max() < (1 << 14)) & (counts.max() < 1024)
+            & (n <= (1 << 24))
+        )
+        return DenseCsrTable(
+            wrap_i32(minv), counts, pos, sid, num_distinct, packed,
+            packed_ok, base128, packed3, packed3_ok,
+        )
+    finally:
+        if sp:
+            sp.close()
 
 
 def probe_dense(
@@ -315,18 +341,26 @@ def probe_dense(
 ) -> CsrProbeResult:
     """lookup() per B row against the dense index. ``hi_rows`` < 128 is the
     JAX package's range-aware precondition (both columns' valid keys span
-    < hi_rows·128 after the min-shift); queries past it are not found."""
-    q = as_u32(b_keys)
-    k = (q - as_u32(t.minv)) & 0xFFFFFFFF
-    in_range = (k < hi_rows * 128) & (b_keys != EMPTY)
-    ki = torch.where(in_range, k, 0)
-    pos = t.pos[ki]
-    cnt = t.counts[ki]
-    found = in_range & (cnt > 0)
-    zero = torch.zeros_like(pos)
-    return CsrProbeResult(
-        found, torch.where(found, pos, zero), torch.where(found, cnt, zero)
-    )
+    < hi_rows·128 after the min-shift); queries past it are not found.
+    Under a profiler it opens the span ``probe_dense``; nothing is read
+    back to the host."""
+    sp = trace.begin("probe_dense")
+    try:
+        q = as_u32(b_keys)
+        k = (q - as_u32(t.minv)) & 0xFFFFFFFF
+        in_range = (k < hi_rows * 128) & (b_keys != EMPTY)
+        ki = torch.where(in_range, k, 0)
+        pos = t.pos[ki]
+        cnt = t.counts[ki]
+        found = in_range & (cnt > 0)
+        zero = torch.zeros_like(pos)
+        return CsrProbeResult(
+            found, torch.where(found, pos, zero),
+            torch.where(found, cnt, zero)
+        )
+    finally:
+        if sp:
+            sp.close()
 
 
 def table_from_numpy(fields: Sequence) -> DenseCsrTable:

@@ -6,7 +6,9 @@ values read back to the host, and spans on the profiler's clock.
 (``sparse``, and ``general`` where a cap trips, the threshold is within 512
 of INT32_MIN, or the input is not int32) and ``groupby.groupby_sum``
 (``small`` for G <= 4096, ``2level`` for G <= 2^16 with values vouched below
-2^14, ``sorted`` otherwise) by the branch they took.
+2^14, ``sorted`` otherwise) by the branch they took, and the CSR join
+indexes built (``csr_join:dense`` a ``csr_join.build_dense`` call,
+``csr_join:general`` a ``csr_join.build`` call).
 ``_build.LAUNCHES`` counts the kernels a run launched, on the card only; this
 counter says which side of a dispatch cliff a call fell on, on the CPU too
 (``utils/cliffs.py`` reads it).
@@ -15,7 +17,7 @@ counter says which side of a dispatch cliff a call fell on, on the CPU too
 through ``read``, on every device: ``sort_auto`` reads two a call
 (``sort_auto.max``, ``sort_auto.min``), ``filter_sparse`` one
 (``filter_sparse.caps``) unless ``assume_sparse=True``, where it reads none;
-``groupby_sum`` reads none.
+``groupby_sum``, ``build_dense`` and ``probe_dense`` read none.
 
 Spans, on the profiler's clock: ``torch.profiler.record_function`` while a
 profiler records, nothing otherwise. The operators and the wrappers read the
@@ -26,17 +28,21 @@ profiler records. The spans land in the profiler's trace
 beside the card's kernels, on one clock: the benchmark's ``--trace 1`` runs
 and the dwarf CLI's ``--profile_dir`` traces carry them. The names:
 
-  * ``sort_auto``, ``filter_sparse``, ``groupby_sum``: the operator call
-    (``groupby_sum`` has no phases: its one branch is a wrapper's span or,
-    for ``sorted``, eager ops);
+  * ``sort_auto``, ``filter_sparse``, ``groupby_sum``, ``build_dense``,
+    ``probe_dense``: the operator call (``groupby_sum`` and
+    ``probe_dense`` have no phases: ``groupby_sum``'s one branch is a
+    wrapper's span or, for ``sorted``, eager ops; ``probe_dense`` is
+    eager gathers);
   * ``sort_auto.span``, ``.histogram``, ``.expand``, ``.torch_sort``;
     ``filter_sparse.phase_a``, ``.tail``, ``.caps``, ``.phase_b``,
-    ``.order``, ``.emit``, ``.general``: its phases;
+    ``.order``, ``.emit``, ``.general``; ``build_dense.histogram``,
+    ``.positions``, ``.id_sort``, ``.layouts``: its phases;
   * ``read.<site>``: a read back to the host (``read``);
   * ``kernel.<name>``: a kernel wrapper, from its checks to its launch,
     ``<name>`` its ``_build.LAUNCHES`` name (on the CPU, its plain twin);
     ``groupby_sum`` opens ``kernel.groupby_small`` or
-    ``kernel.weighted_histogram``.
+    ``kernel.weighted_histogram``, ``build_dense.histogram``
+    ``kernel.histogram``.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """The operators' tracing (``dwarf_bench_tpu_torch/ops/trace.py``) on the
 CPU: no span is entered while no profiler records; under a profiler each
-branch of ``sort_auto``, ``filter_sparse`` and ``groupby_sum`` opens its
-phases' spans, the reads' and the kernel wrappers' nested inside its
-operator's span (on the CPU a wrapper's span holds its plain twin);
-``READS`` counts each read back to the host and ``TAKEN`` each branch; and
-the outputs are the same with the profiler on and off. The file imports no JAX, so it also runs where torch
-is not the CPU build's:
+branch of ``sort_auto``, ``filter_sparse`` and ``groupby_sum``, and the
+dense join's ``build_dense`` and ``probe_dense``, opens its phases' spans,
+the reads' and the kernel wrappers' nested inside its operator's span (on
+the CPU a wrapper's span holds its plain twin); ``READS`` counts each read
+back to the host and ``TAKEN`` each branch and each CSR index built; and
+the outputs are the same with the profiler on and off. The file imports no
+JAX, so it also runs where torch is not the CPU build's:
 
     python -m pytest tests/test_torch_trace.py --noconftest -q
 """
@@ -22,7 +23,7 @@ torch = pytest.importorskip("torch")
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 from dwarf_bench_tpu_torch.ops import (  # noqa: E402
-    groupby, hist_cuda, scan, sort, trace)
+    csr_join, groupby, hist_cuda, scan, sort, trace)
 
 ROOT = "bm.dispatch"  # the benchmark's span around an operator call
 
@@ -41,6 +42,13 @@ def _keys_vals(groups: int, n: int = 4096):
 
 def _groupby(groups: int, **kw):
     return lambda: groupby.groupby_sum(*_keys_vals(groups), groups, **kw)
+
+
+def _dense_join():
+    """The join cells' call: (found, pos, counts, id_buffer)."""
+    t = csr_join.build_dense(_column(1, 10001))
+    r = csr_join.probe_dense(t, _column(1, 12001, 2048), hi_rows=128)
+    return r.found, r.pos, r.counts, t.id_buffer
 
 
 # each branch: (call, spans it opens with each one's parent)
@@ -107,6 +115,16 @@ BRANCHES = {
     }),
     # eager ops (a sort and cumsum differences): no wrapper's span
     "groupby_sorted": (_groupby(1 << 16), {"groupby_sum": ROOT}),
+    # the build's phases, then the probe's eager gathers
+    "dense_join": (_dense_join, {
+        "build_dense": ROOT,
+        "build_dense.histogram": "build_dense",
+        "kernel.histogram": "build_dense.histogram",
+        "build_dense.positions": "build_dense",
+        "build_dense.id_sort": "build_dense",
+        "build_dense.layouts": "build_dense",
+        "probe_dense": ROOT,
+    }),
 }
 # the round-2 path: the same phases, its own kernels
 STATS_PALLAS_PHASES = {"filter_sparse", "filter_sparse.phase_a",
@@ -214,9 +232,11 @@ def test_both_profiler_entry_points_set_the_flag():
     (_groupby(64), {}),
     (_groupby(1 << 16, vals_below_2p14=True), {}),
     (_groupby(1 << 16), {}),
+    (_dense_join, {}),
 ], ids=["sort_hi80", "sort_torch.sort", "sort_empty", "filter_checked",
         "filter_cap_tripped", "filter_assume_sparse", "filter_int32_min",
-        "filter_int64", "groupby_small", "groupby_2level", "groupby_sorted"])
+        "filter_int64", "groupby_small", "groupby_2level", "groupby_sorted",
+        "dense_join"])
 def test_reads_counted_as_documented(call, reads):
     before = dict(trace.READS)
     call()
@@ -270,3 +290,35 @@ def test_weighted_histogram_span_alone_holds_its_twin(tmp_path):
                      tmp_path)
     got.pop(ROOT)
     assert got == {"kernel.weighted_histogram": {ROOT}}
+
+
+@pytest.mark.parametrize("index", ["dense", "general"])
+def test_csr_join_index_counted_once_a_build(index):
+    keys = _column(1, 10001)
+    before = dict(trace.TAKEN)
+    if index == "dense":
+        t = csr_join.build_dense(keys)
+        csr_join.probe_dense(t, keys, hi_rows=128)
+    else:
+        t = csr_join.build(keys, 10000, 20000)
+        csr_join.probe(t, keys)
+    after = {k: v - before.get(k, 0) for k, v in trace.TAKEN.items()
+             if v != before.get(k, 0)}
+    assert after == {f"csr_join:{index}": 1}
+
+
+def test_dense_join_phases_in_order(tmp_path):
+    """The build's phases open one after another inside its span, in the
+    order of its work, and the probe's span follows the build's."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _dense_join()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    order = [e["name"] for e in sorted(
+        (e for e in events if e.get("cat") == "user_annotation"
+         and e.get("ph") == "X" and not e["name"].startswith("kernel.")),
+        key=lambda e: float(e["ts"]))]
+    assert order == ["build_dense", "build_dense.histogram",
+                     "build_dense.positions", "build_dense.id_sort",
+                     "build_dense.layouts", "probe_dense"]
